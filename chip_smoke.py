@@ -15,17 +15,37 @@ back to the CPU. Phases, each fatal on failure:
    plain PyTorch version on the card and against a float64 brute-force
    oracle, on camera and incoherent rays of the TestObj stream, and time
    kernel and plain version at 1M rays;
+3b. hold the step-counting kernel (count_steps=True) on the same rays and
+   forms: its slot and t equal the non-counting kernel's bit for bit, its
+   steps the plain version's on >= 0.999 of lanes, 0 outside the active
+   set; count and time it on phase 3's 1M-ray sets, whose step sums give
+   the traversal bound (section "bounds" below);
+3c. hold the row gather (wide C=128, flat (P,16), batch 8) and scatter
+   kernels to their plain versions at P = 1,048,576, exactly, and time
+   kernel, plain version and library call (torch.index_select /
+   index_copy_) beside the byte bound;
 4. render the c1/c2/c3 golden configurations (96x96, 12 spp) on the card
    and hold them to tests/goldens/*.npz under the gate statistics;
 5. drive the main path: the default TestObj scene at 1024x1024, default
    RenderSettings (1M-lane regen pool), 4 spp through
    Renderer.render_frames, with the kernels' launch counts set to 0
    just before and read just after;
+5b. drive the step census (tools/probe_steps.py) on the same renderer:
+   freeze the pool after 3 waves, count its steps in closest and any hit,
+   counts set to 0 before and read after;
+5c. drive the row probe (tools/probe_dma.py) at P = 1,048,576 the same way;
 6. print the kernels line, the card line, and the result line (last).
 
+Bounds. A traversal kernel's bound is the larger of its bytes (active
+rays, the table once, mask and outputs) over 3.35 TB/s and its operations over the
+card's 67 TFLOP/s FP32 rate: the steps this run's rays took (counted by
+3b) times 39, the FP32 arithmetic of a triangle step of csrc/traverse.cu
+(a node step has 48; compares not counted), so it is a lower bound. The
+row kernels are bound by bytes (tools/probe_dma.py: bound_bytes).
+
 A `details` line carries every measurement as JSON. The BVH is built by
-tpu_pathtracer.accel (numpy + C++), the port's one import from the JAX
-package; nothing here imports jax.
+the port's own accel/ (numpy + C++ built with g++; the line "BVH:" says
+which builder ran); nothing here imports jax or the JAX package.
 """
 import json
 import os
@@ -41,6 +61,10 @@ PREFIX = 397               # splits a warp
 N_CHECK = 65536
 N_BRUTE = 4096
 N_TIME = 1 << 20
+P_DMA = 1 << 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12     # H100 SXM FP32 outside the tensor cores
+OPS_PER_STEP = 39          # FP32 arithmetic of a triangle step (node: 48)
 
 
 def log(*a):
@@ -90,6 +114,25 @@ def brute(np, tri_verts, o, d, tmax):
     return np.concatenate(tris) if tris else np.zeros((0,), np.int64)
 
 
+def trav_forms(np, torch, g, n, dev):
+    """The three checked forms on n lanes: {name: (kwargs, anyhit, mask,
+    tmax per lane, tmax argument)}; draws the mask, then the per-lane tmax,
+    from g."""
+    act = torch.from_numpy(g.random(n) < 0.7).to(dev)
+    tmax_l = torch.from_numpy(
+        g.uniform(0.5, 8.0, n).astype(np.float32)).to(dev)
+    full = torch.full((n,), RAY_MAX, device=dev)
+    return {
+        "closest_prefix": (dict(active_prefix=PREFIX), False,
+                           torch.arange(n, device=dev) < PREFIX, full,
+                           RAY_MAX),
+        "closest_mask_lane_tmax": (dict(active=act), False, act, tmax_l,
+                                   tmax_l),
+        "anyhit_mask": (dict(active=act, anyhit=True), True, act, full,
+                        RAY_MAX),
+    }
+
+
 def check_forms(np, torch, ops, trav, fb, packed, mesh, rays, tag, g):
     """Kernel vs plain version (on the card) vs brute force, three forms.
     Returns {form: max |t_kernel - t_plain| over slot-agreeing lanes}."""
@@ -97,21 +140,10 @@ def check_forms(np, torch, ops, trav, fb, packed, mesh, rays, tag, g):
     n = o.shape[0]
     dev = o.device
     sd = fb.max_depth + 2
-    act = torch.from_numpy(g.random(n) < 0.7).to(dev)
-    tmax_l = torch.from_numpy(
-        g.uniform(0.5, 8.0, n).astype(np.float32)).to(dev)
-    forms = {
-        "closest_prefix": (dict(active_prefix=PREFIX), False,
-                           torch.arange(n, device=dev) < PREFIX,
-                           torch.full((n,), RAY_MAX, device=dev)),
-        "closest_mask_lane_tmax": (dict(active=act), False, act, tmax_l),
-        "anyhit_mask": (dict(active=act, anyhit=True), True, act,
-                        torch.full((n,), RAY_MAX, device=dev)),
-    }
+    forms = trav_forms(np, torch, g, n, dev)
     tri_orig = torch.from_numpy(fb.tri_orig).to(dev)
     errs = {}
-    for name, (kw, anyhit, mask, tmax) in forms.items():
-        tmax_arg = tmax if name == "closest_mask_lane_tmax" else RAY_MAX
+    for name, (kw, anyhit, mask, tmax, tmax_arg) in forms.items():
         ks, kt = ops.packet_intersect(packed, o, d, RAY_MIN, tmax_arg,
                                       stack_depth=sd, **kw)
         ps, pt = trav.intersect_scene(None, None, None, o, d, RAY_MIN,
@@ -152,17 +184,101 @@ def check_forms(np, torch, ops, trav, fb, packed, mesh, rays, tag, g):
     return errs
 
 
-def time_ms(torch, fn, reps):
-    fn()
+def trav_bound_ms(n_lanes, n_active, n_rows, masked, counted, steps_sum):
+    """Least time for a traversal: the bound in ms, what binds it, and the
+    bytes and operations bounds. Bytes: orig + dir of the active lanes
+    read, slot + t (+ steps) of every lane written, the mask read, the
+    (K,16) table read once."""
+    per_lane = 8 + (4 if counted else 0) + (1 if masked else 0)
+    b = (n_active * 24 + n_lanes * per_lane + n_rows * 64) \
+        / HBM_BYTES_PER_S * 1e3
+    o = steps_sum * OPS_PER_STEP / FP32_OPS_PER_S * 1e3
+    return max(b, o), ("bytes" if b >= o else "operations"), b, o
+
+
+def check_steps(np, torch, ops, trav, fb, packed, rays, tag, g):
+    """Phase 3b on one ray set: the counting kernel against the
+    non-counting kernel (slot, t bit for bit) and the plain counting
+    version (steps), three forms. Returns {form: steps agreement}."""
+    o, d = rays
+    sd = fb.max_depth + 2
+    forms = trav_forms(np, torch, g, o.shape[0], o.device)
+    agree = {}
+    for name, (kw, anyhit, mask, _, tmax) in forms.items():
+        ks, kt = ops.packet_intersect(packed, o, d, RAY_MIN, tmax,
+                                      stack_depth=sd, **kw)
+        cs, ct, cn = ops.packet_intersect(packed, o, d, RAY_MIN, tmax,
+                                          stack_depth=sd, count_steps=True,
+                                          **kw)
+        _, _, pn = trav.intersect_scene(None, None, None, o, d, RAY_MIN,
+                                        tmax, anyhit=anyhit, stack_depth=sd,
+                                        active=mask, packed=packed,
+                                        count_steps=True)
+        torch.cuda.synchronize()
+        assert torch.equal(cs, ks) and torch.equal(ct, kt), \
+            (tag, name, "count_steps changed slot or t")
+        assert cn.dtype == torch.int32 and cn.shape == o.shape[:1], \
+            (tag, name)
+        a = (cn == pn).float().mean().item()
+        out = ~mask
+        assert (cn[out] == 0).all().item(), (tag, name, "inactive steps")
+        log("  %-11s %-22s steps = plain on %.6f of lanes, mean %.2f max %d"
+            % (tag, name, a, cn[mask].float().mean().item(),
+               int(cn.max())))
+        assert a >= AGREE_MIN, (tag, name, a)
+        agree[name] = a
+    return agree
+
+
+DMA_CASES = (("gather_wide", 128, "perm", 1, "gather"),
+             ("gather_flat", 0, "perm", 1, "gather"),
+             ("gather_batch8", 128, "run8", 8, "gather"),
+             ("scatter_wide", 128, "perm", 1, "scatter"))
+
+
+def dma_case(torch, probe_dma, dev, case, C, kind, batch, op):
+    """Phase 3c, one case: the row kernel against its plain version at
+    P_DMA rows, exactly; kernel, plain and library times beside the byte
+    bound. Its 512 MB tables are freed when it returns."""
+    from tpu_pathtracer_torch.utils.timing import cuda_ms
+    P = P_DMA
+    tab = probe_dma.table(P, C, dev)
+    idx = probe_dma.indices(P, kind).to(dev)
+    rows = tab.view(P, C or 16)
+    got = probe_dma.make_fn(P, C, batch, op)(tab, idx)
+    want = probe_dma.plain(tab, idx, P, C, batch, op)
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    assert torch.equal(got, want), (case, "kernel != plain")
+    del got, want
+    kern = probe_dma.launch_fn(tab, idx, P, C, batch, op)
+
+    def plain():
+        return probe_dma.plain(tab, idx, P, C, batch, op)
+    lib = None
+    if op == "gather" and batch == 1:
+        def lib():
+            return torch.index_select(rows, 0, idx)
+    elif op == "scatter":
+        idx64 = idx.long()
+        dst = torch.empty_like(rows)
+
+        def lib():
+            return dst.index_copy_(0, idx64, rows)
+    p1 = cuda_ms(plain, 3)
+    k1 = cuda_ms(kern, 20)
+    k2 = cuda_ms(kern, 20)
+    p2 = cuda_ms(plain, 3)
+    lib_ms = cuda_ms(lib, 20) if lib is not None else None
+    bound = probe_dma.bound_bytes(idx, C, batch) / HBM_BYTES_PER_S * 1e3
+    log("  dma %-13s kernel %.4f/%.4f ms  plain %.4f/%.4f ms  library %s ms"
+        "  bound %.4f ms (%.1f%%)"
+        % (case, k1, k2, p1, p2,
+           "%.4f" % lib_ms if lib_ms is not None else "none", bound,
+           100 * bound / min(k1, k2)))
+    return {"rows": P, "cols": C or 16, "batch": batch,
+            "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+            "library_ms": lib_ms, "bound_ms": bound,
+            "bound_share": bound / min(k1, k2), "max_abs_err": 0.0}
 
 
 def gate(np, img, want, name):
@@ -248,13 +364,29 @@ def main():
 
     from tpu_pathtracer_torch.ops import traverse_packet as ops
     from tpu_pathtracer_torch.tracer import traverse as trav
+    from tpu_pathtracer_torch.utils.timing import cuda_ms
     from tpu_pathtracer_torch.scene import demo, procedural
     from tpu_pathtracer_torch.tracer.renderer import Renderer
 
     # ---- 3. kernel vs plain vs brute force; times at 1M rays ----
     cache = os.path.join(HERE, ".bvh_cache_torch")
-    fb, mats, envmap, texture = demo.testobj_scene(cache_dir=cache)
     mesh = procedural.make_test_scene()
+    from tpu_pathtracer_torch.accel import cache as bvh_cache, native_build
+    hit = os.path.exists(os.path.join(cache, "bvh_%s.npz" % bvh_cache
+                                      ._cache_key(mesh, None, None)))
+    lib = native_build.get_lib()
+    if hit:
+        builder = "cache hit (no build)"
+    elif lib is not None:
+        builder = "native C++ SBVH builder (%s, built by g++)" \
+            % os.path.relpath(lib._name, HERE)
+    else:
+        builder = "Python SBVH builder (the g++ build of the native one " \
+            "failed)"
+    t0 = time.time()
+    fb, mats, envmap, texture = demo.testobj_scene(cache_dir=cache)
+    report["bvh"] = {"builder": builder, "s": time.time() - t0}
+    log("BVH: %s, %.1f s" % (builder, report["bvh"]["s"]))
     packed = torch.from_numpy(trav.pack_stream(fb.prims, fb.meta)).to(dev)
     log("TestObj stream: %d rows, %d nodes, depth %d"
         % (packed.shape[0], fb.num_nodes, fb.max_depth))
@@ -288,10 +420,10 @@ def main():
                                             stack_depth=sd, active=mask,
                                             packed=packed)
             # plain, kernel, kernel, plain
-            p1 = time_ms(torch, plain, 1)
-            k1 = time_ms(torch, kern, 10)
-            k2 = time_ms(torch, kern, 10)
-            p2 = time_ms(torch, plain, 1)
+            p1 = cuda_ms(plain, 1)
+            k1 = cuda_ms(kern, 10)
+            k2 = cuda_ms(kern, 10)
+            p2 = cuda_ms(plain, 1)
             ks, kt = kern()
             ps, pt = plain()
             same = (ks == ps) & (ks >= 0)
@@ -307,6 +439,79 @@ def main():
             log("  time %-10s %-8s kernel %.3f/%.3f ms  plain %.1f/%.1f ms  "
                 "agree %.6f" % (tag, kind, k1, k2, p1, p2, agree))
     report["timing_1M"] = timing
+
+    # ---- 3b. count_steps: counting kernel vs kernel vs plain ----
+    steps_agree = {}
+    for tag, rays in (("camera", camera_rays(torch, 256, dev)),
+                      ("incoherent", incoherent_rays(np, torch, N_CHECK, fb,
+                                                     7, dev))):
+        for k, v in check_steps(np, torch, ops, trav, fb, packed, rays, tag,
+                                g).items():
+            steps_agree["%s_%s" % (tag, k)] = v
+    report["steps_agree"] = steps_agree
+    K = packed.shape[0]
+    for tag, (o, d) in big.items():
+        for kind, anyhit in (("closest", False), ("anyhit", True)):
+            kw = dict(active=n_half) if anyhit else dict(active_prefix=N_TIME)
+            mask = n_half if anyhit else None
+
+            def kern_c():
+                return ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX,
+                                            stack_depth=sd, anyhit=anyhit,
+                                            count_steps=True, **kw)
+
+            def plain_c():
+                return trav.intersect_scene(None, None, None, o, d, RAY_MIN,
+                                            RAY_MAX, anyhit=anyhit,
+                                            stack_depth=sd, active=mask,
+                                            packed=packed, count_steps=True)
+            p1 = cuda_ms(plain_c, 1)
+            k1 = cuda_ms(kern_c, 10)
+            k2 = cuda_ms(kern_c, 10)
+            p2 = cuda_ms(plain_c, 1)
+            cs, ct, cn = kern_c()
+            ps, pt, pn = plain_c()
+            ks, kt = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX,
+                                          stack_depth=sd, anyhit=anyhit,
+                                          **kw)
+            assert torch.equal(cs, ks) and torch.equal(ct, kt), (tag, kind)
+            agree = (cn == pn).float().mean().item()
+            assert agree >= AGREE_MIN, (tag, kind, "steps", agree)
+            same = (cs == ps) & (cs >= 0)
+            err = (ct[same] - pt[same]).abs().max().item() if same.any() \
+                else 0.0
+            steps_sum = int(cn.sum().item())
+            row = timing["%s_%s" % (kind, tag)]
+            b, by, b_bytes, b_ops = trav_bound_ms(N_TIME, row["rays"], K,
+                                                  anyhit, False, steps_sum)
+            row.update(steps_sum=steps_sum,
+                       steps_per_ray=steps_sum / row["rays"],
+                       bound_ms=b, bound_by=by, bound_bytes_ms=b_bytes,
+                       bound_ops_ms=b_ops,
+                       bound_share=b / min(row["kernel_ms"]))
+            bc, byc, _, _ = trav_bound_ms(N_TIME, row["rays"], K, anyhit,
+                                          True, steps_sum)
+            timing["%s_steps_%s" % (kind, tag)] = {
+                "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                "rays": row["rays"], "steps_agree": agree,
+                "max_abs_err": err, "steps_sum": steps_sum,
+                "bound_ms": bc, "bound_by": byc,
+                "bound_share": bc / min(k1, k2)}
+            log("  steps %-10s %-8s sum %d (%.2f per active ray), counting "
+                "kernel %.4f/%.4f ms plain %.1f/%.1f ms, steps = plain on "
+                "%.6f; bound %.4f ms by %s (bytes %.4f, ops %.4f): kernel "
+                "at %.1f%% of it" % (tag, kind, steps_sum, row["steps_per_ray"],
+                                     k1, k2, p1, p2, agree, b, by, b_bytes,
+                                     b_ops, 100 * row["bound_share"]))
+            del cs, ct, cn, ps, pt, pn, ks, kt
+    del big
+
+    # ---- 3c. row gather / scatter kernels at 1M rows ----
+    from tpu_pathtracer_torch.ops import dma_rows
+    from tpu_pathtracer_torch.tools import probe_dma, probe_steps
+    report["dma"] = {case: dma_case(torch, probe_dma, dev, case, *rest)
+                     for case, *rest in DMA_CASES}
+    torch.cuda.empty_cache()
 
     # ---- 4. goldens on the card ----
     golden = {}
@@ -350,8 +555,8 @@ def main():
     assert img.shape == (W * H, 3), img.shape
     assert np.all(np.isfinite(img)), "main path: non-finite radiance"
     assert float(img.mean()) > 0.01, "main path: black image"
-    for k, v in launches.items():
-        assert v > 0, "main path never launched %s" % k
+    for k in ("traverse_closest", "traverse_anyhit"):
+        assert launches[k] > 0, "main path never launched %s" % k
     main = {"width": W, "height": H, "spp": spp,
             "pool_lanes": r.settings.pool_lanes,
             "ms_per_frame": ms / spp, "host_s": t_host, "waves": waves,
@@ -361,21 +566,74 @@ def main():
     log("main path %dx%d x %d spp: %.1f ms per 1-spp frame, %d waves, "
         "%.0f rays, %.1f Mrays/s, launches %s"
         % (W, H, spp, ms / spp, waves, rays, main["mrays_per_s"], launches))
+
+    # ---- 5b. the step census on the main path's renderer ----
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.time()
+    rc_vec = torch.as_tensor(rc.as_array(), device=dev)
+    census = probe_steps.run(r, rc_vec, [3], spp, timed=True)
+    torch.cuda.synchronize()
+    census_launches = dict(ops.LAUNCHES)
+    for rec in census:
+        log(probe_steps.report(rec))
+    for k in ("traverse_closest_steps", "traverse_anyhit_steps"):
+        assert census_launches[k] > 0, "step census never launched %s" % k
+    assert census[0]["after_waves"] == 3, census[0]["after_waves"]
+    report["census"] = {"waves": 3, "spp": spp, "records": census,
+                        "launches": census_launches, "s": time.time() - t0}
+    del r
+
+    # ---- 5c. the row probe ----
+    for k in dma_rows.LAUNCHES:
+        dma_rows.LAUNCHES[k] = 0
+    t0 = time.time()
+    probe = probe_dma.run("cuda", P_DMA, reps=5)
+    torch.cuda.synchronize()
+    dma_launches = dict(dma_rows.LAUNCHES)
+    for rec in probe:
+        log("  probe_dma " + probe_dma.report(rec))
+    for k, v in dma_launches.items():
+        assert v > 0, "row probe never launched %s" % k
+    report["probe_dma"] = {"cases": probe, "launches": dma_launches,
+                           "s": time.time() - t0}
     assert "jax" not in sys.modules, "the port imported jax"
+    assert not [m for m in sys.modules if m == "tpu_pathtracer"
+                or m.startswith("tpu_pathtracer.")], \
+        "the port imported the JAX package"
 
     # ---- 6. result ----
     src = "tpu_pathtracer_torch/csrc/traverse.cu"
     rep = "tpu_pathtracer/ops/traverse_packet.py:507"
     kernels = []
-    for name, kind in (("traverse_closest", "closest"),
-                       ("traverse_anyhit", "anyhit")):
+    for name, kind, runs in (
+            ("traverse_closest", "closest", launches),
+            ("traverse_anyhit", "anyhit", launches),
+            ("traverse_closest_steps", "closest_steps", census_launches),
+            ("traverse_anyhit_steps", "anyhit_steps", census_launches)):
         tm = timing["%s_coherent" % kind]
+        if "steps" in kind:
+            err = max(timing["%s_%s" % (kind, t)]["max_abs_err"]
+                      for t in ("coherent", "incoherent"))
+        else:
+            err = max(v for k, v in errs.items() if k.startswith(kind))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name],
-            "max_abs_err": max(v for k, v in errs.items()
-                               if k.startswith(kind)),
-            "ms": min(tm["kernel_ms"]), "plain_ms": min(tm["plain_ms"])})
+            "launches": runs[name], "max_abs_err": err,
+            "ms": min(tm["kernel_ms"]), "plain_ms": min(tm["plain_ms"]),
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": None})
+    dma_src = "tpu_pathtracer_torch/csrc/dma_rows.cu"
+    for name, case, rep in (
+            ("dma_gather", "gather_flat", "tools/probe_dma.py:60"),
+            ("dma_scatter", "scatter_wide", "tools/probe_dma.py:137")):
+        dm = report["dma"][case]
+        kernels.append({
+            "name": name, "route": "cuda", "source": dma_src,
+            "replaces": rep, "launches": dma_launches[name],
+            "max_abs_err": dm["max_abs_err"], "ms": min(dm["kernel_ms"]),
+            "plain_ms": min(dm["plain_ms"]), "bound_ms": dm["bound_ms"],
+            "bound_by": "bytes", "library_ms": dm["library_ms"]})
     report["kernels"] = kernels
     report["card"] = card
     report["total_s"] = time.time() - t_start

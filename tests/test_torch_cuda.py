@@ -1,4 +1,5 @@
-"""The CUDA traversal kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (traversal, step-counting traversal, row gather and
+scatter) against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; they skip elsewhere. The file
 imports no jax, so it also runs where jax is not installed:
@@ -7,6 +8,9 @@ imports no jax, so it also runs where jax is not installed:
 
 Tolerances as in chip_smoke.py: hit/miss agrees on >= 0.999 of lanes, the
 hit slot too for closest hit, and t within rtol 1e-5 where slots agree.
+The counting kernel's slot and t equal the non-counting kernel's bit for
+bit and its steps the plain version's on >= 0.999 of lanes; the row
+kernels equal their plain versions exactly (pure data movement).
 """
 import functools
 
@@ -17,6 +21,7 @@ import torch
 from tpu_pathtracer_torch.scene import demo
 from tpu_pathtracer_torch.tracer import traverse as trav
 from tpu_pathtracer_torch.ops import traverse_packet as ops
+from tpu_pathtracer_torch.ops import dma_rows
 
 torch.set_num_threads(2)
 RAY_MIN, RAY_MAX = 1e-4, 1e20
@@ -46,12 +51,8 @@ def _rays(n, seed):
     return o, d, g
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("form", ["prefix", "mask_lane_tmax", "anyhit"])
-def test_kernel_matches_plain_on_card(device, form):
-    fb, packed = _testobj()
-    o, d, g = _rays(N, 7)
-    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+def _form(form, device, g):
+    """(kwargs, mask, tmax tensor, tmax argument) of one traversal form."""
     act = torch.from_numpy(g.random(N) < 0.7).to(device)
     tmax = torch.full((N,), RAY_MAX, device=device)
     if form == "prefix":
@@ -63,8 +64,85 @@ def test_kernel_matches_plain_on_card(device, form):
         kw, mask = dict(active=act), act
     else:
         kw, mask = dict(active=act, anyhit=True), act
+    return kw, mask, tmax, tmax if form == "mask_lane_tmax" else RAY_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["prefix", "mask_lane_tmax", "anyhit"])
+def test_counting_kernel_matches_plain_on_card(device, form):
+    fb, packed = _testobj()
+    o, d, g = _rays(N, 11)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    kw, mask, tmax, tmax_arg = _form(form, device, g)
+    sd = fb.max_depth + 2
+    ks, kt = ops.packet_intersect(packed, o, d, RAY_MIN, tmax_arg,
+                                  stack_depth=sd, **kw)
+    before = dict(ops.LAUNCHES)
+    cs, ct, cn = ops.packet_intersect(packed, o, d, RAY_MIN, tmax_arg,
+                                      stack_depth=sd, count_steps=True, **kw)
+    torch.cuda.synchronize()
+    name = "traverse_anyhit_steps" if form == "anyhit" \
+        else "traverse_closest_steps"
+    assert ops.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(cs, ks) and torch.equal(ct, kt)
+    _, _, pn = trav.intersect_scene(None, None, None, o, d, RAY_MIN, tmax_arg,
+                                    anyhit=form == "anyhit", stack_depth=sd,
+                                    active=mask, packed=packed,
+                                    count_steps=True)
+    assert cn.dtype == torch.int32
+    assert (cn == pn).float().mean().item() >= 0.999
+    assert (cn[~mask] == 0).all().item()
+    assert (cn[mask] > 0).all().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["wide", "flat", "batch8", "scatter"])
+def test_dma_kernels_match_plain_on_card(device, case):
+    P, C = 8192, (0 if case == "flat" else 128)
+    g = np.random.default_rng(3)
+    tab = torch.from_numpy(g.standard_normal(
+        P * 16 if C == 0 else (P, C)).astype(np.float32)).to(device)
+    if case == "batch8":
+        idx = (g.permutation(P // 8)[:, None] * 8 + np.arange(8)).reshape(-1)
+    else:
+        idx = g.permutation(P)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(device)
+    rows = tab.view(P, C or 16)
+    before = dict(dma_rows.LAUNCHES)
+    if case == "scatter":
+        got = dma_rows.make_dma_scatter(P, C, chunk=1024)(tab, idx)
+        want = dma_rows.scatter_rows_plain(rows, idx)
+        name = "dma_scatter"
+    else:
+        batch = 8 if case == "batch8" else 1
+        got = dma_rows.make_dma_gather(P, C, chunk=1024, batch=batch)(tab, idx)
+        want = dma_rows.gather_rows_plain(rows, idx, batch).reshape(tab.shape)
+        name = "dma_gather"
+    torch.cuda.synchronize()
+    assert dma_rows.LAUNCHES[name] == before[name] + 1
+    assert got.device == tab.device
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_dma_wrapper_raises_on_card_indices_out_of_range(device):
+    tab = torch.zeros((1024, 16), device=device)
+    idx = torch.arange(1024, dtype=torch.int32, device=device)
+    idx[5] = 1024
+    with pytest.raises(IndexError):
+        dma_rows.make_dma_gather(1024, 16, chunk=512)(tab, idx)
+    with pytest.raises(IndexError):
+        dma_rows.make_dma_scatter(1024, 16, chunk=512)(tab, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["prefix", "mask_lane_tmax", "anyhit"])
+def test_kernel_matches_plain_on_card(device, form):
+    fb, packed = _testobj()
+    o, d, g = _rays(N, 7)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    kw, mask, tmax, tmax_arg = _form(form, device, g)
     anyhit = kw.get("anyhit", False)
-    tmax_arg = tmax if form == "mask_lane_tmax" else RAY_MAX
     sd = fb.max_depth + 2
     before = dict(ops.LAUNCHES)
     ks, kt = ops.packet_intersect(packed, o, d, RAY_MIN, tmax_arg,

@@ -1,5 +1,6 @@
-"""The port imports torch and never jax."""
+"""The port imports torch and never jax, and nothing of the JAX package."""
 import os
+import re
 import subprocess
 import sys
 
@@ -28,7 +29,10 @@ def test_port_has_the_slice_modules():
               "scene.demo", "scene.texture", "materials.fresnel",
               "materials.bsdf", "tracer.traverse", "tracer.envsample",
               "tracer.wavefront", "tracer.renderer", "tracer.regen",
-              "ops.traverse_packet", "utils.cuda_build", "convert"):
+              "ops.traverse_packet", "ops.dma_rows", "ops.checks",
+              "accel", "accel.bvh", "accel.flatten", "accel.cache",
+              "accel.native_build", "tools.probe_steps", "tools.probe_dma",
+              "utils.cuda_build", "convert"):
         assert "tpu_pathtracer_torch." + m in mods, m
 
 
@@ -40,10 +44,8 @@ def test_importing_every_port_module_leaves_jax_out():
             "             if k == 'jax' or k.startswith('jax.')\n"
             "             or k == 'jaxlib' or k.startswith('jaxlib.'))\n"
             "print('JAXMODS', bad)\n"
-            "leaked = [k for k in sys.modules if k.startswith('tpu_pathtracer')\n"
-            "          and not k.startswith('tpu_pathtracer_torch')\n"
-            "          and not k.startswith('tpu_pathtracer.accel')\n"
-            "          and k != 'tpu_pathtracer']\n"
+            "leaked = [k for k in sys.modules if k == 'tpu_pathtracer'\n"
+            "          or k.startswith('tpu_pathtracer.')]\n"
             "print('LEAKED', sorted(leaked))\n" % (_port_modules(),))
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -51,6 +53,19 @@ def test_importing_every_port_module_leaves_jax_out():
     assert out.returncode == 0, out.stderr
     assert "JAXMODS []" in out.stdout, out.stdout
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("path", ["tpu_pathtracer_torch", "chip_smoke.py"])
+def test_no_import_of_the_jax_package(path):
+    full = os.path.join(REPO, path)
+    files = [full] if full.endswith(".py") else [
+        os.path.join(r, f) for r, _d, fs in os.walk(full) for f in fs
+        if f.endswith(".py")]
+    pat = re.compile(r"^\s*(from|import)\s+tpu_pathtracer(\.|\s|$)")
+    for f in files:
+        with open(f) as fh:
+            for line in fh:
+                assert not pat.match(line), (f, line)
 
 
 @pytest.mark.parametrize("path", ["tpu_pathtracer_torch", "chip_smoke.py"])

@@ -187,11 +187,28 @@ def _call(**kw):
     (dict(queue_k=64, interleave=4, step_mode="branch"), ValueError),
     (dict(step_unroll=0), ValueError),
     (dict(stack_depth=65), ValueError),
-    (dict(count_steps=True), NotImplementedError),
 ])
 def test_wrapper_raises(kw, exc):
     with pytest.raises(exc):
         _call(**kw)
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_wrapper_count_steps_returns_steps(anyhit):
+    """count_steps=True adds steps [N] i32 (the rows each lane fetched) and
+    leaves slot and t as they were; the plain version counts the same."""
+    _, fb, packed = _small()
+    s, t = _call(anyhit=anyhit)
+    cs, ct, n = _call(anyhit=anyhit, count_steps=True)
+    assert torch.equal(s, cs) and torch.equal(t, ct)
+    assert n.dtype == torch.int32 and n.shape == (16,)
+    assert (n >= 1).all() and (n <= packed.shape[0]).all()
+    o, d, _ = _rays(16, 3)
+    *_, pn = ttrav.intersect_scene(None, None, None, torch.from_numpy(o),
+                                   torch.from_numpy(d), RAY_MIN, RAY_MAX,
+                                   anyhit=anyhit, packed=torch.from_numpy(
+                                       packed), count_steps=True)
+    assert torch.equal(n, pn)
 
 
 def test_wrapper_smem_budget_guard():

@@ -3,9 +3,9 @@
 The JAX package `tpu_pathtracer` stays the reference; this package mirrors
 its module names and computes the same images with plain PyTorch tensor
 code, plus hand-written CUDA kernels (under `csrc/`) where the JAX package
-had a Pallas kernel. It imports `torch` and never `jax`. The one thing it
-takes from the JAX package is `tpu_pathtracer.accel` (SBVH build,
-flattening, content-hashed cache, alias builder: numpy + C++), so both
+had a Pallas kernel. It imports `torch` and never `jax`, and nothing of
+the JAX package: `accel/` is its own copy of the host-side SBVH build,
+flattening, content-hashed cache and alias builder (numpy + C++), so both
 packages traverse the same flattened stream.
 
 Every function takes its device from the tensors it is given; classes that

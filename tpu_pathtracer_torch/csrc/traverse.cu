@@ -29,6 +29,17 @@
 // with 16-byte read-only loads (__ldg of four float4 per row). Coherent
 // callers (the regen pool is compacted by hit slot and direction octant)
 // keep a warp's rows close. The stack lives in local memory (L1-cached).
+//
+// Step census (kCount): out_steps[i] is the number of loop iterations in
+// which the thread's cursor was not SENTINEL, i.e. the rows it fetched; 0
+// for inactive lanes and lanes past the prefix. The TPU kernel
+// (count_steps=True) stores the PACKET's count on every lane of the packet.
+// For a packet of identical rays the two agree exactly in closest hit; in
+// any hit the thread stops at its hit while a finished packet still pops
+// its remaining node rows, one step per stack entry, so the thread's count
+// is <= the packet's, equal where the ray misses. The count costs one
+// register and one store, in instantiations of their own: the two
+// non-counting ones are unchanged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,7 +50,7 @@ constexpr int kSentinel = 0x76543210;
 constexpr int kMaxStack = 64;
 constexpr int kBlock = 128;
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kCount>
 __global__ void __launch_bounds__(kBlock)
 traverse_kernel(const float4* __restrict__ table,
                 const float* __restrict__ orig,
@@ -48,11 +59,13 @@ traverse_kernel(const float4* __restrict__ table,
                 const float* __restrict__ tmax_lane,
                 int n_prefix, const uint8_t* __restrict__ active,
                 int n, int stack_depth,
-                int* __restrict__ out_slot, float* __restrict__ out_t) {
+                int* __restrict__ out_slot, float* __restrict__ out_t,
+                int* __restrict__ out_steps) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float hit_t = tmax_lane != nullptr ? tmax_lane[i] : tmax_scalar;
   int hit_slot = -1;
+  int steps = 0;
   const bool act = active != nullptr ? active[i] != 0 : i < n_prefix;
   if (act) {
     const float ox = orig[3 * i], oy = orig[3 * i + 1], oz = orig[3 * i + 2];
@@ -68,6 +81,7 @@ traverse_kernel(const float4* __restrict__ table,
     int sp = 0;
     int cur = 0;
     while (cur != kSentinel) {
+      if (kCount) ++steps;
       const int row = cur >= 0 ? cur : ~cur;
       const float4 r0 = __ldg(table + 4 * row);
       const float4 r1 = __ldg(table + 4 * row + 1);
@@ -127,6 +141,22 @@ traverse_kernel(const float4* __restrict__ table,
   }
   out_slot[i] = hit_slot;
   out_t[i] = hit_t;
+  if (kCount) out_steps[i] = steps;
+}
+
+template <bool kAnyHit, bool kCount>
+void launch(dim3 grid, cudaStream_t s, const void* table,
+            const void* orig, const void* dir, float tmin,
+            float tmax_scalar, const void* tmax_lane, int n_prefix,
+            const void* active, int n, int stack_depth, void* out_slot,
+            void* out_t, void* out_steps) {
+  traverse_kernel<kAnyHit, kCount><<<grid, kBlock, 0, s>>>(
+      static_cast<const float4*>(table), static_cast<const float*>(orig),
+      static_cast<const float*>(dir), tmin, tmax_scalar,
+      static_cast<const float*>(tmax_lane), n_prefix,
+      static_cast<const uint8_t*>(active), n, stack_depth,
+      static_cast<int*>(out_slot), static_cast<float*>(out_t),
+      static_cast<int*>(out_steps));
 }
 
 }  // namespace
@@ -134,28 +164,25 @@ traverse_kernel(const float4* __restrict__ table,
 // Plain C entry point for ctypes. Launches on `stream` and returns the
 // launch's cudaGetLastError() code (0 on success). tmax_lane and active may
 // be null: then tmax_scalar, and the prefix [0, n_prefix), are used.
+// out_steps may be null; when it is not, the counting instantiation runs.
 extern "C" int tpt_traverse(const void* table, const void* orig,
                             const void* dir, float tmin, float tmax_scalar,
                             const void* tmax_lane, int n_prefix,
                             const void* active, int n, int stack_depth,
                             int anyhit, void* out_slot, void* out_t,
-                            void* stream) {
+                            void* out_steps, void* stream) {
   const dim3 grid((n + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using Launch = void (*)(dim3, cudaStream_t, const void*, const void*,
+                         const void*, float, float, const void*, int,
+                         const void*, int, int, void*, void*, void*);
+  Launch fn;
   if (anyhit) {
-    traverse_kernel<true><<<grid, kBlock, 0, s>>>(
-        static_cast<const float4*>(table), static_cast<const float*>(orig),
-        static_cast<const float*>(dir), tmin, tmax_scalar,
-        static_cast<const float*>(tmax_lane), n_prefix,
-        static_cast<const uint8_t*>(active), n, stack_depth,
-        static_cast<int*>(out_slot), static_cast<float*>(out_t));
+    fn = out_steps != nullptr ? &launch<true, true> : &launch<true, false>;
   } else {
-    traverse_kernel<false><<<grid, kBlock, 0, s>>>(
-        static_cast<const float4*>(table), static_cast<const float*>(orig),
-        static_cast<const float*>(dir), tmin, tmax_scalar,
-        static_cast<const float*>(tmax_lane), n_prefix,
-        static_cast<const uint8_t*>(active), n, stack_depth,
-        static_cast<int*>(out_slot), static_cast<float*>(out_t));
+    fn = out_steps != nullptr ? &launch<false, true> : &launch<false, false>;
   }
+  fn(grid, s, table, orig, dir, tmin, tmax_scalar, tmax_lane, n_prefix,
+     active, n, stack_depth, out_slot, out_t, out_steps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,18 @@ The signature and the argument checks are the JAX function's. Arguments
 that only choose a TPU schedule (tile_sub, interleave, queue_k, step_mode,
 step_unroll, table_mem, anyhit_early_stop, interpret) are checked as
 there and then change nothing: every schedule returns the same result.
-`count_steps` (a per-packet step census) is not ported yet.
+
+`count_steps=True` adds the step census, steps [N] i32, as a third output
+on both devices (the JAX function's return, `traverse_packet.py:1005`).
+It counts per ray: the rows the lane fetched, i.e. the steps in which its
+cursor was not SENTINEL; 0 for lanes outside the active set. JAX counts
+per packet and stores the packet's count on all its lanes, inactive ones
+included. For a packet whose lanes all carry the same ray the two relate
+exactly: equal in closest hit; in any hit the port's count is <= JAX's and
+equal where the ray misses, because a thread stops at its first accepted
+hit while a finished TPU packet still pops one stack entry per step until
+its stack is empty (`tests/test_torch_steps.py` holds both). slot and t do
+not change with count_steps.
 """
 from __future__ import annotations
 
@@ -20,13 +31,15 @@ import ctypes
 import torch
 
 from ..tracer.traverse import intersect_scene
+from .checks import require
 
 _SMEM_TABLE_BUDGET_BYTES = 700_000
 MAX_STACK_DEPTH = 64          # kMaxStack in csrc/traverse.cu
 
 # Launches of each kernel instantiation, counted where the wrapper launches
 # it and nowhere else; set back to 0 by whoever reads them.
-LAUNCHES = {"traverse_closest": 0, "traverse_anyhit": 0}
+LAUNCHES = {"traverse_closest": 0, "traverse_anyhit": 0,
+            "traverse_closest_steps": 0, "traverse_anyhit_steps": 0}
 
 
 def table_fits_smem(n_rows):
@@ -40,7 +53,7 @@ def _is_scalar(x):
 
 
 def _check_args(K, tmin, tmax, active, active_prefix, table_mem, step_mode,
-                queue_k, interleave, step_unroll, stack_depth, count_steps):
+                queue_k, interleave, step_unroll, stack_depth):
     if active_prefix is not None:
         if active is not None:
             raise ValueError("pass active or active_prefix, not both")
@@ -67,9 +80,6 @@ def _check_args(K, tmin, tmax, active, active_prefix, table_mem, step_mode,
     if not 1 <= stack_depth <= MAX_STACK_DEPTH:
         raise ValueError("stack_depth must be in [1, %d], got %d"
                          % (MAX_STACK_DEPTH, stack_depth))
-    if count_steps:
-        raise NotImplementedError(
-            "count_steps is not ported yet (ROADMAP queue B, item 4)")
 
 
 def packet_intersect(packed, orig, raydir, tmin, tmax, anyhit=False,
@@ -82,12 +92,13 @@ def packet_intersect(packed, orig, raydir, tmin, tmax, anyhit=False,
 
     tmin is a scalar; tmax a scalar or [N]. The active set is either a
     mask `active` [N] bool or the lane prefix [0, active_prefix) (an int).
-    Returns (hit_slot [N] i32, hit_t [N] f32); lanes outside the active
-    set return (-1, tmax). With anyhit=True a lane stops at its first
+    Returns (hit_slot [N] i32, hit_t [N] f32), plus steps [N] i32 with
+    count_steps (see the module docstring); lanes outside the active set
+    return (-1, tmax, 0). With anyhit=True a lane stops at its first
     accepted hit (callers read only whether t < tmax)."""
     _check_args(packed.shape[0], tmin, tmax, active, active_prefix,
                 table_mem, step_mode, queue_k, interleave, step_unroll,
-                stack_depth, count_steps)
+                stack_depth)
     N = orig.shape[0]
     if active_prefix is not None:
         active_prefix = int(active_prefix)
@@ -96,27 +107,13 @@ def packet_intersect(packed, orig, raydir, tmin, tmax, anyhit=False,
             active = torch.arange(N) < active_prefix
         return intersect_scene(None, None, None, orig, raydir, tmin, tmax,
                                anyhit=anyhit, stack_depth=stack_depth,
-                               active=active, packed=packed)
+                               active=active, packed=packed,
+                               count_steps=count_steps)
     if orig.device.type != "cuda":
         raise ValueError("packet_intersect: unsupported device %s"
                          % orig.device)
     return _launch(packed, orig, raydir, float(tmin), tmax, anyhit,
-                   stack_depth, active, active_prefix)
-
-
-def _require(t, name, device, dtype, shape):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError("%s must be a tensor" % name)
-    if t.device != device:
-        raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
-    if t.dtype != dtype:
-        raise ValueError("%s has dtype %s, expected %s" % (name, t.dtype,
-                                                            dtype))
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError("%s has shape %s, expected %s"
-                         % (name, tuple(t.shape), tuple(shape)))
-    if not t.is_contiguous():
-        raise ValueError("%s must be contiguous" % name)
+                   stack_depth, active, active_prefix, count_steps)
 
 
 def _kernel_fn():
@@ -127,19 +124,19 @@ def _kernel_fn():
         p = ctypes.c_void_p
         fn.argtypes = [p, p, p, ctypes.c_float, ctypes.c_float, p,
                        ctypes.c_int, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, p, p, p]
+                       ctypes.c_int, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
-            active_prefix):
+            active_prefix, count_steps):
     device = orig.device
     N = orig.shape[0]
     K = packed.shape[0]
-    _require(packed, "packed", device, torch.float32, (K, 16))
-    _require(orig, "orig", device, torch.float32, (N, 3))
-    _require(raydir, "raydir", device, torch.float32, (N, 3))
+    require(packed, "packed", device, torch.float32, (K, 16))
+    require(orig, "orig", device, torch.float32, (N, 3))
+    require(raydir, "raydir", device, torch.float32, (N, 3))
     if N >= 2 ** 31 or K * 4 >= 2 ** 31:
         raise ValueError("packet_intersect: N=%d / K=%d exceed int32 "
                          "indexing" % (N, K))
@@ -149,17 +146,20 @@ def _launch(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
         tmax_scalar = float(tmax)
     else:
         tmax_lane = tmax
-        _require(tmax_lane, "tmax", device, torch.float32, (N,))
+        require(tmax_lane, "tmax", device, torch.float32, (N,))
     if active is not None:
-        _require(active, "active", device, torch.bool, (N,))
+        require(active, "active", device, torch.bool, (N,))
         n_prefix = 0
     else:
         n_prefix = N if active_prefix is None else max(0, min(active_prefix,
                                                               N))
     slot = torch.empty((N,), dtype=torch.int32, device=device)
     t = torch.empty((N,), dtype=torch.float32, device=device)
+    steps = torch.empty((N,), dtype=torch.int32, device=device) \
+        if count_steps else None
+    out = (slot, t, steps) if count_steps else (slot, t)
     if N == 0:
-        return slot, t
+        return out
     fn = _kernel_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -169,9 +169,11 @@ def _launch(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
                  n_prefix,
                  active.data_ptr() if active is not None else None,
                  N, int(stack_depth), int(bool(anyhit)),
-                 slot.data_ptr(), t.data_ptr(), stream)
+                 slot.data_ptr(), t.data_ptr(),
+                 steps.data_ptr() if count_steps else None, stream)
     if err != 0:
         raise RuntimeError("traverse kernel launch failed: CUDA error %d"
                            % err)
-    LAUNCHES["traverse_anyhit" if anyhit else "traverse_closest"] += 1
-    return slot, t
+    name = "traverse_anyhit" if anyhit else "traverse_closest"
+    LAUNCHES[name + "_steps" if count_steps else name] += 1
+    return out

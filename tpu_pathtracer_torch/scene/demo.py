@@ -1,13 +1,13 @@
 """The TestObj demo scene and its camera (port of scene/demo.py).
 
-The BVH comes from `tpu_pathtracer.accel` (numpy + C++), the same builder
-and content-hashed cache the JAX package uses, so both packages trace the
+The BVH comes from the port's `accel` (numpy + C++), a copy of the JAX
+package's builder and content-hashed cache, so both packages trace the
 same flattened stream. The head and large/organic demo scenes are not
 ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
-from tpu_pathtracer.accel.cache import load_or_build
+from ..accel.cache import load_or_build
 
 from .config import (
     MatDesc, MAT_DIFF, MAT_REFL, MAT_GLASS, MAT_FRESNEL, MAT_SUBSURFACE,

@@ -1,0 +1,159 @@
+"""Step census of the mid-frame ray population (port of tools/probe_steps.py).
+
+    python -m tpu_pathtracer_torch.tools.probe_steps [--device cuda]
+        [--size 1024] [--waves 1,3] [--spp 4]
+
+For each k in --waves it freezes the regen pool of the default TestObj
+scene after k waves (`make_regen_integrator(stop_after_waves=k)`), traces
+the pool's rays once with `count_steps=True` under the mask `active`, in
+closest hit (the extension trace) and in any hit (the form of the NEE
+shadow trace, on the same rays), and prints steps per ray: mean, p50, p95
+and max over the active lanes.
+
+It also prints the SIMT analog of the JAX probe's interleave tax. A warp
+of 32 threads runs until its slowest lane is done, so over 32-lane warps
+in pool order it pays sum(32 * max(steps)) thread-steps for sum(steps)
+live ones. The oracle grouping (the same rays sorted by step count, then
+grouped in 32s) says what any reordering of the pool could save at most.
+On the card the closest-hit trace (without the count) is timed with CUDA
+events and divided by the warp-steps, sum(max(steps)) over warps.
+
+--device cuda (the default) needs a card and fails without one; it never
+falls back. --device cpu runs the plain versions at a small size (64^2 by
+default) and times nothing.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+WARP = 32
+
+
+def census(steps, active):
+    """Statistics of one counted trace: steps [P] i32 and active [P] bool
+    (tensors or arrays, pool order). Returns a dict of host numbers."""
+    s = np.asarray(torch.as_tensor(steps).cpu(), np.int64)
+    a = np.asarray(torch.as_tensor(active).cpu(), bool)
+    live = s[a]
+    n = int(a.sum())
+    if n == 0:
+        raise ValueError("census of an empty pool")
+    # warps in pool order over the whole pool (inactive lanes count 0)
+    pad = -s.shape[0] % WARP
+    w = np.pad(np.where(a, s, 0), (0, pad)).reshape(-1, WARP).max(axis=1)
+    oracle = np.sort(live)[::-1]
+    oracle = np.pad(oracle, (0, -n % WARP)).reshape(-1, WARP).max(axis=1)
+    live_sum = int(live.sum())
+    return {
+        "rays": n, "steps_sum": live_sum,
+        "mean": float(live.mean()), "p50": float(np.percentile(live, 50)),
+        "p95": float(np.percentile(live, 95)), "max": int(live.max()),
+        "warp_steps": int(w.sum()), "paid": int(w.sum()) * WARP,
+        "oracle_paid": int(oracle.sum()) * WARP,
+        "tax": WARP * float(w.sum()) / max(live_sum, 1) - 1.0,
+        "oracle_tax": WARP * float(oracle.sum()) / max(live_sum, 1) - 1.0,
+    }
+
+
+def testobj_renderer(size, device, cache_dir=None):
+    """The default TestObj scene with default settings at size^2."""
+    from ..scene.demo import testobj_scene, default_camera
+    from ..tracer.renderer import Renderer
+    fb, mats, envmap, texture = testobj_scene(cache_dir=cache_dir)
+    r = Renderer(fb, mats, envmap=envmap, texture=texture, width=size,
+                 height=size, device=device)
+    cam = default_camera(size, size).build_render_camera()
+    return r, torch.as_tensor(cam.as_array(), device=r.device)
+
+
+def freeze_pool(renderer, cam_vec, waves, spp):
+    """The regen pool after `waves` waves of frames 1..spp."""
+    from ..tracer.regen import make_regen_integrator
+    fn = make_regen_integrator(renderer.settings, renderer.width,
+                               renderer.height, stop_after_waves=waves)
+    return fn(renderer.scene, cam_vec, 1, 0, renderer.zeros_accum(), spp)
+
+
+def trace_pool(renderer, pool, anyhit=False, count_steps=False):
+    """Trace the pool's rays under its active mask."""
+    from ..core.vecmath import RAY_MIN, RAY_MAX
+    from ..ops.traverse_packet import packet_intersect
+    return packet_intersect(
+        renderer.scene["packed"], pool["orig"], pool["dir"], RAY_MIN,
+        RAY_MAX, anyhit=anyhit, stack_depth=renderer.settings.stack_depth,
+        active=pool["active"], count_steps=count_steps)
+
+
+def run(renderer, cam_vec, waves_list, spp, timed):
+    """Census for each k in waves_list; returns a list of dicts."""
+    out = []
+    for k in waves_list:
+        pool = freeze_pool(renderer, cam_vec, k, spp)
+        rec = {"after_waves": pool["waves"], "alive": pool["alive"]}
+        for kind, anyhit in (("closest", False), ("anyhit", True)):
+            steps = trace_pool(renderer, pool, anyhit, count_steps=True)[2]
+            rec[kind] = census(steps, pool["active"])
+        if timed:
+            from ..utils.timing import cuda_ms
+            ms = cuda_ms(lambda: trace_pool(renderer, pool), 20)
+            rec["closest"]["trace_ms"] = ms
+            rec["closest"]["ns_per_warp_step"] = \
+                ms * 1e6 / max(rec["closest"]["warp_steps"], 1)
+        out.append(rec)
+        del pool
+    return out
+
+
+def report(rec):
+    lines = ["after %d waves: %d live rays" % (rec["after_waves"],
+                                               rec["alive"])]
+    for kind in ("closest", "anyhit"):
+        c = rec[kind]
+        lines.append(
+            "  %-7s steps/ray mean %.2f p50 %.0f p95 %.0f max %d; warps "
+            "pay %.3fM thread-steps for %.3fM live (+%.1f%%), oracle "
+            "grouping %.3fM (+%.1f%%)"
+            % (kind, c["mean"], c["p50"], c["p95"], c["max"], c["paid"] / 1e6,
+               c["steps_sum"] / 1e6, 100 * c["tax"], c["oracle_paid"] / 1e6,
+               100 * c["oracle_tax"]))
+    c = rec["closest"]
+    if "trace_ms" in c:
+        lines.append("  closest trace %.4f ms -> %.3f ns per warp-step"
+                     % (c["trace_ms"], c["ns_per_warp_step"]))
+    else:
+        lines.append("  trace time: not measured (cpu)")
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--size", type=int, default=None,
+                    help="image side (default 1024 on cuda, 64 on cpu)")
+    ap.add_argument("--waves", default="1,3")
+    ap.add_argument("--spp", type=int, default=4)
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("probe_steps: --device cuda needs a CUDA device "
+              "(torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    size = args.size or (1024 if args.device == "cuda" else 64)
+    waves = [int(w) for w in args.waves.split(",")]
+    renderer, cam_vec = testobj_renderer(size, args.device)
+    recs = run(renderer, cam_vec, waves, args.spp,
+               timed=args.device == "cuda")
+    for rec in recs:
+        print(report(rec), flush=True)
+    dev = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    print(json.dumps({"device": dev, "size": size, "spp": args.spp,
+                      "census": recs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

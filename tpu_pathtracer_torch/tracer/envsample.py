@@ -1,19 +1,18 @@
 """Environment-map importance sampling with MIS (port of tracer/envsample.py).
 
 The distribution is built on the host in numpy with the same alias
-builder as the JAX package (`tpu_pathtracer.accel.native_build`), so the
-packed alias table is identical bit for bit. Sampling is one row gather
-per lane. Integer columns of the packed row are bit patterns stored in
-f32 slots: they are reinterpreted with `.view(torch.int32)`, never
-converted.
+builder as the JAX package (the port's copy, `accel/native_build.py`), so
+the packed alias table is identical bit for bit. Sampling is one row
+gather per lane. Integer columns of the packed row are bit patterns
+stored in f32 slots: they are reinterpreted with `.view(torch.int32)`,
+never converted.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from tpu_pathtracer.accel.native_build import alias_build_native
-
+from ..accel.native_build import alias_build_native
 from ..core.vecmath import PI, TWO_PI
 from ..scene.texture import _uv_from_dir
 

@@ -27,6 +27,10 @@ addition order (CUDA index_add_ adds with atomics). `dense_fresh_flush`
 is accepted and has no effect. The ring itself waits for an H100
 measurement that calls for it.
 
+`stop_after_waves=k` (the probes' hook, JAX `regen.py:205-209,940-946`)
+ends the loop after k waves, or earlier when the frame is done, and
+returns the pool instead of the image (see `make_regen_integrator`).
+
 Not ported yet (each raises): regen_order="inplace", regen_permute="sort",
 media, BSSRDF, the distant light, the dup_stage profiling hook.
 """
@@ -75,13 +79,27 @@ def _check_settings(settings: RenderSettings):
 
 
 def make_regen_integrator(settings: RenderSettings, width, height,
-                          with_stats=False):
+                          with_stats=False, stop_after_waves=0):
     """Returns integrate_frames(scene, cam_vec, frame0, lane0, accum,
     n_frames) -> (accum, waves) or, with with_stats, (accum, waves, rays):
     accum plus n_frames samples per pixel, the number of waves, and the
     number of rays traced (extension + NEE shadow). lane0 is the global
-    lane offset of this image slice (0 for a whole image)."""
+    lane offset of this image slice (0 for a whole image).
+
+    With stop_after_waves=k > 0 the loop ends after k waves (or earlier,
+    when every sample is done) and integrate_frames returns the pool as it
+    stands after the last wave's compaction and dead-row flush, a dict
+    with the JAX key names: orig, dir, mask, L [P,3] f32; bsdf_pdf [P] f32;
+    rng, pixel [P] i64 (the port's masked uint32 and pixel index); lbn,
+    bounce [P] i32; active [P] bool, which is the prefix [0, alive) since
+    the pool is compacted every wave; and the host integers waves, next
+    (samples spawned) and alive. L is 0 outside the active prefix, as in
+    JAX; the other fields of rows past it are stale."""
     _check_settings(settings)
+    stop_after_waves = int(stop_after_waves)
+    if stop_after_waves < 0:
+        raise ValueError("stop_after_waves must be >= 0, got %d"
+                         % stop_after_waves)
     deferred = settings.scatter_mode in ("ring", "deferred")
     use_nee = settings.use_envmap and settings.env_importance_sampling
 
@@ -107,7 +125,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
         rays = torch.zeros((), dtype=torch.float64, device=device)
         nxt, alive, waves = 0, 0, 0
 
-        while nxt < tot or alive > 0:
+        while ((nxt < tot or alive > 0)
+               and not 0 < stop_after_waves <= waves):
             # ---- respawn: the dead suffix [alive, P) takes the next
             # samples of the queue, in order ----
             n_spawn = min(tot - nxt, P - alive)
@@ -255,6 +274,13 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                 dead = slice(alive, n_act)
                 accum.index_add_(0, pixel[dead], ell[dead])
 
+        if stop_after_waves:
+            active = torch.arange(P, device=device) < alive
+            return {"orig": orig, "dir": raydir, "mask": mask,
+                    "L": torch.where(active[:, None], ell, 0.0),
+                    "bsdf_pdf": bsdf_pdf, "rng": rng, "pixel": pixel,
+                    "lbn": lbn, "bounce": bounce, "active": active,
+                    "waves": waves, "next": nxt, "alive": alive}
         if with_stats:
             return accum, waves, float(rays)
         return accum, waves

@@ -7,7 +7,7 @@ machine as the JAX reference. Each step a lane reads one row of the packed
 (K,16) stream and either runs the two child slab tests of a node row or
 the Woop test of a triangle row, chosen by the sign of its cursor.
 
-Layout of the stream (`tpu_pathtracer/accel/flatten.py`): a node row holds
+Layout of the stream (`accel/flatten.py`): a node row holds
 the two child boxes in cols 0:12 and the children in meta cols 12:14 (an
 inner child is its row, a leaf child is ~(first triangle row)); a triangle
 row holds the Woop matrix in cols 0:12 and (attribute slot, is-last) in
@@ -59,7 +59,7 @@ def _lane_vector(x, n, device):
 
 def intersect_scene(prims, meta, num_nodes, orig, raydir, tmin, tmax,
                     anyhit=False, stack_depth=STACK_DEPTH, active=None,
-                    packed=None):
+                    packed=None, count_steps=False):
     """Trace rays against the flattened BVH.
 
     prims [K,12] f32 and meta [K,2] i32, or `packed` [K,16] from
@@ -67,7 +67,11 @@ def intersect_scene(prims, meta, num_nodes, orig, raydir, tmin, tmax,
     active: optional [N] bool. Returns (hit_slot [N] i32, the attribute slot
     of the closest hit or -1, and hit_t [N] f32, tmax where nothing was
     hit). With anyhit=True a lane stops at its first accepted hit.
-    Inactive lanes return (-1, tmax)."""
+    Inactive lanes return (-1, tmax).
+
+    count_steps=True adds a third output, steps [N] i32: the number of
+    steps in which the lane's cursor was not SENTINEL, i.e. the rows it
+    fetched (0 for inactive lanes)."""
     device = orig.device
     N = orig.shape[0]
     if packed is None:
@@ -79,13 +83,19 @@ def intersect_scene(prims, meta, num_nodes, orig, raydir, tmin, tmax,
     tmin_a = _lane_vector(tmin, N, device)
     hit_t = _lane_vector(tmax, N, device).clone()
     hit_slot = torch.full((N,), -1, dtype=torch.int32, device=device)
+    steps = torch.zeros((N,), dtype=torch.int32, device=device) \
+        if count_steps else None
+
+    def result():
+        return (hit_slot, hit_t, steps) if count_steps else (hit_slot, hit_t)
+
     if active is None:
         lanes = torch.arange(N, device=device)
     else:
         lanes = torch.nonzero(active.reshape(N)).reshape(-1)
     n = lanes.shape[0]
     if n == 0:
-        return hit_slot, hit_t
+        return result()
 
     o = orig[lanes].to(torch.float32)
     d = raydir[lanes].to(torch.float32)
@@ -100,9 +110,12 @@ def intersect_scene(prims, meta, num_nodes, orig, raydir, tmin, tmax,
     S = int(stack_depth)
     stack = torch.full((n, S + 1), SENTINEL, dtype=torch.int32, device=device)
     sp = torch.zeros((n,), dtype=torch.int64, device=device)
+    cnt = torch.zeros((n,), dtype=torch.int32, device=device)
 
     while True:
         alive = cur != SENTINEL
+        if count_steps:
+            cnt = cnt + alive.to(torch.int32)
         is_node = alive & (cur >= 0)
         is_tri = cur < 0
         row = torch.where(is_tri, ~cur, torch.where(is_node, cur, 0))
@@ -176,11 +189,13 @@ def intersect_scene(prims, meta, num_nodes, orig, raydir, tmin, tmax,
         if n_keep * 2 <= n:
             hit_t[lanes] = ht
             hit_slot[lanes] = hs
+            if count_steps:
+                steps[lanes] = cnt
             if n_keep == 0:
-                return hit_slot, hit_t
-            (lanes, o, d, idir12, ood12, tn, ht, hs, cur, stack, sp) = (
+                return result()
+            (lanes, o, d, idir12, ood12, tn, ht, hs, cur, stack, sp, cnt) = (
                 x[keep] for x in (lanes, o, d, idir12, ood12, tn, ht, hs,
-                                  cur, stack, sp))
+                                  cur, stack, sp, cnt))
             n = n_keep
 
 

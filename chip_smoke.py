@@ -12,14 +12,20 @@ back to the CPU. Phases, each fatal on failure:
    source, in parallel) into the ignored csrc/_build/ directory;
 3. hold the traversal kernel (closest hit with a 397-lane prefix, closest
    hit with a mask and per-lane tmax, any hit with a mask) against its
-   plain PyTorch version on the card and against a float64 brute-force
-   oracle, on camera and incoherent rays of the TestObj stream, and time
-   kernel and plain version at 1M rays;
+   plain PyTorch version on the card, slot and t bit for bit on every
+   lane, and against a float64 brute-force oracle, on camera and
+   incoherent rays of the TestObj stream; time the kernel (its bare C
+   entry, and through the wrapper) and the plain version (equal on every
+   lane again) at 1M rays in three forms (closest hit over the whole
+   prefix, any hit under a 50% mask, closest hit under a 70% mask with
+   per-lane tmax) and on small launches (4,096 and 65,536 camera rays);
 3b. hold the step-counting kernel (count_steps=True) on the same rays and
    forms: its slot and t equal the non-counting kernel's bit for bit, its
-   steps the plain version's on >= 0.999 of lanes, 0 outside the active
-   set; count and time it on phase 3's 1M-ray sets, whose step sums give
-   the traversal bound (section "bounds" below);
+   steps the plain version's on every lane, 0 outside the active set;
+   count and time it on phase 3's timed sets, whose step sums give the
+   traversal bound (section "bounds" below) and whose measured warp-steps
+   (ops.traverse_packet.last_warp_steps) give the warps' tax over the live
+   steps and ns per warp-step;
 3c. hold the row gather (wide C=128, flat (P,16), batch 8) and scatter
    kernels to their plain versions at P = 1,048,576, exactly, and time
    kernel, plain version and library call (torch.index_select /
@@ -31,8 +37,9 @@ back to the CPU. Phases, each fatal on failure:
    Renderer.render_frames, with the kernels' launch counts set to 0
    just before and read just after;
 5b. drive the step census (tools/probe_steps.py) on the same renderer:
-   freeze the pool after 3 waves, count its steps in closest and any hit,
-   counts set to 0 before and read after;
+   freeze the pool after 3 waves, count its steps in closest and any hit
+   (modelled and measured warp tax), time both traces on the frozen pool
+   beside their bound, counts set to 0 before and read after;
 5c. drive the row probe (tools/probe_dma.py) at P = 1,048,576 the same way;
 6. print the kernels line, the card line, and the result line (last).
 
@@ -79,31 +86,6 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def camera_rays(torch, n_side, device):
-    """Primary rays of the default camera over an n_side^2 image, in the
-    renderer's lane order (frame 1), as the first regen wave traces them."""
-    from tpu_pathtracer_torch.core.rng import RaySampler, wang_hash
-    from tpu_pathtracer_torch.scene.demo import default_camera
-    from tpu_pathtracer_torch.tracer.renderer import (
-        generate_camera_rays, lane_pixel_xy)
-    cam = default_camera(n_side, n_side).build_render_camera()
-    cam_vec = torch.as_tensor(cam.as_array(), device=device)
-    lanes = torch.arange(n_side * n_side, device=device)
-    rng = RaySampler.init(wang_hash(1), lanes)
-    px, py = lane_pixel_xy(lanes, n_side, n_side)
-    _, o, d = generate_camera_rays(cam_vec, rng, px.float(), py.float())
-    return o.contiguous(), d.contiguous()
-
-
-def incoherent_rays(np, torch, n, fb, seed, device):
-    """Origins uniform in the scene box, directions uniform on the sphere."""
-    g = np.random.default_rng(seed)
-    o = g.uniform(fb.root_lo, fb.root_hi, (n, 3)).astype(np.float32)
-    d = g.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return (torch.from_numpy(o).to(device), torch.from_numpy(d).to(device))
-
-
 def brute(np, tri_verts, o, d, tmax):
     """Float64 brute-force closest-hit triangle (or -1) with per-lane tmax,
     in chunks of 256 rays."""
@@ -133,6 +115,27 @@ def trav_forms(np, torch, g, n, dev):
     }
 
 
+TIMED_FORMS = ("closest", "anyhit", "closest_lane_tmax")
+
+
+def timed_forms(np, torch, g, n, dev):
+    """The timed forms on n lanes: {kind: (kwargs, anyhit, mask or None,
+    tmax argument, active rays)}. closest: the whole prefix, as the
+    extension trace; anyhit: a 50% mask, as the NEE shadow trace;
+    closest_lane_tmax: a 70% mask with per-lane tmax in [0.5, 8)."""
+    half = torch.from_numpy(g.random(n) < 0.5).to(dev)
+    act = torch.from_numpy(g.random(n) < 0.7).to(dev)
+    tmax_l = torch.from_numpy(
+        g.uniform(0.5, 8.0, n).astype(np.float32)).to(dev)
+    return {
+        "closest": (dict(active_prefix=n), False, None, RAY_MAX, n),
+        "anyhit": (dict(active=half, anyhit=True), True, half, RAY_MAX,
+                   int(half.sum())),
+        "closest_lane_tmax": (dict(active=act), False, act, tmax_l,
+                              int(act.sum())),
+    }
+
+
 def check_forms(np, torch, ops, trav, fb, packed, mesh, rays, tag, g):
     """Kernel vs plain version (on the card) vs brute force, three forms.
     Returns {form: max |t_kernel - t_plain| over slot-agreeing lanes}."""
@@ -159,7 +162,10 @@ def check_forms(np, torch, ops, trav, fb, packed, mesh, rays, tag, g):
         err = (kt[same] - pt[same]).abs().max().item() if same.any() else 0.0
         rel = ((kt[same] - pt[same]).abs() / pt[same].abs()).max().item() \
             if same.any() else 0.0
-        # the contract for lanes outside the active set
+        # bit for bit on every lane, and the contract for lanes outside the
+        # active set
+        assert torch.equal(ks, ps) and torch.equal(kt, pt), \
+            (tag, name, "kernel != plain version")
         out = ~mask
         assert (ks[out] == -1).all().item(), (tag, name, "inactive slot")
         assert torch.equal(kt[out], tmax[out]), (tag, name, "inactive t")
@@ -220,6 +226,7 @@ def check_steps(np, torch, ops, trav, fb, packed, rays, tag, g):
         assert cn.dtype == torch.int32 and cn.shape == o.shape[:1], \
             (tag, name)
         a = (cn == pn).float().mean().item()
+        assert torch.equal(cn, pn), (tag, name, "steps != plain version")
         out = ~mask
         assert (cn[out] == 0).all().item(), (tag, name, "inactive steps")
         log("  %-11s %-22s steps = plain on %.6f of lanes, mean %.2f max %d"
@@ -367,6 +374,8 @@ def main():
     from tpu_pathtracer_torch.utils.timing import cuda_ms
     from tpu_pathtracer_torch.scene import demo, procedural
     from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.tools.probe_steps import (
+        camera_rays, incoherent_rays)
 
     # ---- 3. kernel vs plain vs brute force; times at 1M rays ----
     cache = os.path.join(HERE, ".bvh_cache_torch")
@@ -392,119 +401,135 @@ def main():
         % (packed.shape[0], fb.num_nodes, fb.max_depth))
     g = np.random.default_rng(1234)
     errs = {}
-    for tag, rays in (("camera", camera_rays(torch, 256, dev)),
-                      ("incoherent", incoherent_rays(np, torch, N_CHECK, fb,
-                                                     7, dev))):
+    for tag, rays in (("camera", camera_rays(256, dev)),
+                      ("incoherent", incoherent_rays(N_CHECK, fb, 7, dev))):
         e = check_forms(np, torch, ops, trav, fb, packed, mesh, rays, tag, g)
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
 
     sd = fb.max_depth + 2
+    K = packed.shape[0]
     timing = {}
-    big = {"coherent": camera_rays(torch, 1024, dev),
-           "incoherent": incoherent_rays(np, torch, N_TIME, fb, 8, dev)}
-    n_half = torch.from_numpy(g.random(N_TIME) < 0.5).to(dev)
-    for tag, (o, d) in big.items():
-        for kind, anyhit in (("closest", False), ("anyhit", True)):
-            kw = dict(active=n_half) if anyhit else dict(active_prefix=N_TIME)
-            mask = n_half if anyhit else None
+    co, cd = camera_rays(1024, dev)
+    # (tag, rays, kinds): the 1M sets in three forms, small launches in one
+    big = [("coherent", (co, cd), TIMED_FORMS),
+           ("incoherent", incoherent_rays(N_TIME, fb, 8, dev), TIMED_FORMS),
+           ("small_4096", (co[:4096].contiguous(), cd[:4096].contiguous()),
+            ("closest",)),
+           ("small_65536", (co[:65536].contiguous(),
+                            cd[:65536].contiguous()), ("closest",))]
+    forms = {tag: timed_forms(np, torch, g, rays[0].shape[0], dev)
+             for tag, rays, _ in big}
+    # the bare launch of the kernel (ops.launch_fn: its C entry, no
+    # wrapper): its time is the kernel's; the wrapper's checks and
+    # allocations add host time
+    for tag, (o, d), kinds in big:
+        for kind in kinds:
+            kw, anyhit, mask, tmax, n_act = forms[tag][kind]
 
             def kern():
-                return ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX,
-                                            stack_depth=sd, anyhit=anyhit,
-                                            **kw)
+                return ops.packet_intersect(packed, o, d, RAY_MIN, tmax,
+                                            stack_depth=sd, **kw)
 
             def plain():
                 return trav.intersect_scene(None, None, None, o, d, RAY_MIN,
-                                            RAY_MAX, anyhit=anyhit,
+                                            tmax, anyhit=anyhit,
                                             stack_depth=sd, active=mask,
                                             packed=packed)
-            # plain, kernel, kernel, plain
+            bare_fn = ops.launch_fn(packed, o, d, RAY_MIN, tmax,
+                                    stack_depth=sd, **kw)
+            # plain, kernel, kernel, plain; then the bare launch twice
+            reps = 10 if o.shape[0] == N_TIME else 50
             p1 = cuda_ms(plain, 1)
-            k1 = cuda_ms(kern, 10)
-            k2 = cuda_ms(kern, 10)
+            k1 = cuda_ms(kern, reps)
+            k2 = cuda_ms(kern, reps)
             p2 = cuda_ms(plain, 1)
+            b1 = cuda_ms(bare_fn, 2 * reps)
+            b2 = cuda_ms(bare_fn, 2 * reps)
             ks, kt = kern()
             ps, pt = plain()
-            same = (ks == ps) & (ks >= 0)
-            agree = ((ks >= 0) == (ps >= 0)).float().mean().item()
-            assert agree >= AGREE_MIN, (tag, kind, agree)
-            err = (kt[same] - pt[same]).abs().max().item() if same.any() \
-                else 0.0
-            errs["%s_%s_1M" % (kind, tag)] = err
+            assert torch.equal(ks, ps) and torch.equal(kt, pt), \
+                (tag, kind, "kernel != plain version")
             timing["%s_%s" % (kind, tag)] = {
-                "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-                "rays": N_TIME if not anyhit else int(n_half.sum()),
-                "agree": agree, "max_abs_err": err}
-            log("  time %-10s %-8s kernel %.3f/%.3f ms  plain %.1f/%.1f ms  "
-                "agree %.6f" % (tag, kind, k1, k2, p1, p2, agree))
+                "kernel_ms": [b1, b2], "wrapper_ms": [k1, k2],
+                "plain_ms": [p1, p2], "lanes": o.shape[0], "rays": n_act,
+                "agree": 1.0, "max_abs_err": 0.0}
+            errs["%s_%s" % (kind, tag)] = 0.0
+            log("  time %-11s %-17s kernel %.4f/%.4f ms (through the wrapper "
+                "%.4f/%.4f)  plain %.1f/%.1f ms  = plain on every lane"
+                % (tag, kind, b1, b2, k1, k2, p1, p2))
     report["timing_1M"] = timing
 
     # ---- 3b. count_steps: counting kernel vs kernel vs plain ----
     steps_agree = {}
-    for tag, rays in (("camera", camera_rays(torch, 256, dev)),
-                      ("incoherent", incoherent_rays(np, torch, N_CHECK, fb,
-                                                     7, dev))):
+    for tag, rays in (("camera", camera_rays(256, dev)),
+                      ("incoherent", incoherent_rays(N_CHECK, fb, 7, dev))):
         for k, v in check_steps(np, torch, ops, trav, fb, packed, rays, tag,
                                 g).items():
             steps_agree["%s_%s" % (tag, k)] = v
     report["steps_agree"] = steps_agree
-    K = packed.shape[0]
-    for tag, (o, d) in big.items():
-        for kind, anyhit in (("closest", False), ("anyhit", True)):
-            kw = dict(active=n_half) if anyhit else dict(active_prefix=N_TIME)
-            mask = n_half if anyhit else None
+    for tag, (o, d), kinds in big:
+        for kind in kinds:
+            kw, anyhit, mask, tmax, n_act = forms[tag][kind]
 
             def kern_c():
-                return ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX,
-                                            stack_depth=sd, anyhit=anyhit,
-                                            count_steps=True, **kw)
+                return ops.packet_intersect(packed, o, d, RAY_MIN, tmax,
+                                            stack_depth=sd, count_steps=True,
+                                            **kw)
 
             def plain_c():
                 return trav.intersect_scene(None, None, None, o, d, RAY_MIN,
-                                            RAY_MAX, anyhit=anyhit,
+                                            tmax, anyhit=anyhit,
                                             stack_depth=sd, active=mask,
                                             packed=packed, count_steps=True)
+            bare_c = ops.launch_fn(packed, o, d, RAY_MIN, tmax,
+                                   stack_depth=sd, count_steps=True, **kw)
+            reps = 10 if o.shape[0] == N_TIME else 50
             p1 = cuda_ms(plain_c, 1)
-            k1 = cuda_ms(kern_c, 10)
-            k2 = cuda_ms(kern_c, 10)
+            k1 = cuda_ms(kern_c, reps)
+            k2 = cuda_ms(kern_c, reps)
             p2 = cuda_ms(plain_c, 1)
+            b1 = cuda_ms(bare_c, 2 * reps)
+            b2 = cuda_ms(bare_c, 2 * reps)
             cs, ct, cn = kern_c()
+            warp_steps = int(ops.last_warp_steps())
             ps, pt, pn = plain_c()
-            ks, kt = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX,
-                                          stack_depth=sd, anyhit=anyhit,
-                                          **kw)
+            ks, kt = ops.packet_intersect(packed, o, d, RAY_MIN, tmax,
+                                          stack_depth=sd, **kw)
             assert torch.equal(cs, ks) and torch.equal(ct, kt), (tag, kind)
-            agree = (cn == pn).float().mean().item()
-            assert agree >= AGREE_MIN, (tag, kind, "steps", agree)
-            same = (cs == ps) & (cs >= 0)
-            err = (ct[same] - pt[same]).abs().max().item() if same.any() \
-                else 0.0
+            assert torch.equal(cn, pn), (tag, kind, "steps != plain")
             steps_sum = int(cn.sum().item())
+            n_lanes = o.shape[0]
+            masked = "active" in kw
             row = timing["%s_%s" % (kind, tag)]
-            b, by, b_bytes, b_ops = trav_bound_ms(N_TIME, row["rays"], K,
-                                                  anyhit, False, steps_sum)
-            row.update(steps_sum=steps_sum,
-                       steps_per_ray=steps_sum / row["rays"],
+            b, by, b_bytes, b_ops = trav_bound_ms(n_lanes, n_act, K, masked,
+                                                  False, steps_sum)
+            row.update(steps_sum=steps_sum, steps_per_ray=steps_sum / n_act,
                        bound_ms=b, bound_by=by, bound_bytes_ms=b_bytes,
                        bound_ops_ms=b_ops,
-                       bound_share=b / min(row["kernel_ms"]))
-            bc, byc, _, _ = trav_bound_ms(N_TIME, row["rays"], K, anyhit,
-                                          True, steps_sum)
+                       bound_share=b / min(row["kernel_ms"]),
+                       warp_steps=warp_steps,
+                       measured_tax=32 * warp_steps / steps_sum - 1,
+                       ns_per_warp_step=min(row["kernel_ms"]) * 1e6
+                       / warp_steps)
+            bc, byc, _, _ = trav_bound_ms(n_lanes, n_act, K, masked, True,
+                                          steps_sum)
             timing["%s_steps_%s" % (kind, tag)] = {
-                "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-                "rays": row["rays"], "steps_agree": agree,
-                "max_abs_err": err, "steps_sum": steps_sum,
-                "bound_ms": bc, "bound_by": byc,
-                "bound_share": bc / min(k1, k2)}
-            log("  steps %-10s %-8s sum %d (%.2f per active ray), counting "
-                "kernel %.4f/%.4f ms plain %.1f/%.1f ms, steps = plain on "
-                "%.6f; bound %.4f ms by %s (bytes %.4f, ops %.4f): kernel "
-                "at %.1f%% of it" % (tag, kind, steps_sum, row["steps_per_ray"],
-                                     k1, k2, p1, p2, agree, b, by, b_bytes,
-                                     b_ops, 100 * row["bound_share"]))
+                "kernel_ms": [b1, b2], "wrapper_ms": [k1, k2],
+                "plain_ms": [p1, p2], "rays": n_act, "steps_agree": 1.0,
+                "max_abs_err": 0.0, "steps_sum": steps_sum, "bound_ms": bc,
+                "bound_by": byc, "bound_share": bc / min(b1, b2)}
+            log("  steps %-11s %-17s sum %d (%.2f per active ray), warps paid "
+                "%+.1f%%, %.3f ns per warp-step; counting kernel %.4f/%.4f "
+                "ms (through the wrapper %.4f/%.4f) plain %.1f/%.1f ms, steps "
+                "= plain on every lane; bound %.4f ms by %s (bytes %.4f, ops "
+                "%.4f): kernel at %.1f%% of it"
+                % (tag, kind, steps_sum, row["steps_per_ray"],
+                   100 * row["measured_tax"], row["ns_per_warp_step"], b1, b2,
+                   k1, k2, p1, p2, b, by, b_bytes, b_ops,
+                   100 * row["bound_share"]))
             del cs, ct, cn, ps, pt, pn, ks, kt
-    del big
+    del big, co, cd
 
     # ---- 3c. row gather / scatter kernels at 1M rows ----
     from tpu_pathtracer_torch.ops import dma_rows
@@ -580,6 +605,16 @@ def main():
     for k in ("traverse_closest_steps", "traverse_anyhit_steps"):
         assert census_launches[k] > 0, "step census never launched %s" % k
     assert census[0]["after_waves"] == 3, census[0]["after_waves"]
+    for kind in ("closest", "anyhit"):
+        c = census[0][kind]
+        b, by, b_bytes, b_ops = trav_bound_ms(c["lanes"], c["rays"], K, True,
+                                              False, c["steps_sum"])
+        c.update(bound_ms=b, bound_by=by, bound_bytes_ms=b_bytes,
+                 bound_ops_ms=b_ops, bound_share=b / c["trace_ms"])
+        log("  census %-7s trace %.4f ms, bound %.4f ms by %s (bytes %.4f, "
+            "ops %.4f): kernel at %.1f%% of it" % (
+                kind, c["trace_ms"], b, by, b_bytes, b_ops,
+                100 * c["bound_share"]))
     report["census"] = {"waves": 3, "spp": spp, "records": census,
                         "launches": census_launches, "s": time.time() - t0}
     del r

@@ -10,7 +10,9 @@ Tolerances as in chip_smoke.py: hit/miss agrees on >= 0.999 of lanes, the
 hit slot too for closest hit, and t within rtol 1e-5 where slots agree.
 The counting kernel's slot and t equal the non-counting kernel's bit for
 bit and its steps the plain version's on >= 0.999 of lanes; the row
-kernels equal their plain versions exactly (pure data movement).
+kernels equal their plain versions exactly (pure data movement). The
+`_exact` cases hold slot, t and steps to the plain version bit for bit on
+every lane.
 """
 import functools
 
@@ -161,3 +163,168 @@ def test_kernel_matches_plain_on_card(device, form):
     out = ~mask
     assert (ks[out] == -1).all().item()
     assert torch.equal(kt[out], tmax[out])
+
+
+def _soup_stream():
+    """A random soup of 20,000 triangles through the port's accel: a stream
+    of ~32k rows and a tree deeper than the TestObj one."""
+    from tpu_pathtracer_torch.accel.flatten import flatten_mesh_bvh
+    from tpu_pathtracer_torch.scene.mesh import TriangleMesh
+    g = np.random.default_rng(5)
+    n = 20000
+    c = g.uniform(-3.0, 3.0, (n, 1, 3))
+    v = (c + g.normal(scale=0.2, size=(n, 3, 3))).astype(np.float32)
+    mesh = TriangleMesh(
+        vertices=v.reshape(-1, 3),
+        indices=np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+        uv=np.zeros((n, 3, 2), np.float32),
+        normals=np.zeros((n, 3, 3), np.float32),
+        material_ids=np.zeros(n, np.int32))
+    fb = flatten_mesh_bvh(mesh)
+    return fb, trav.pack_stream(fb.prims, fb.meta)
+
+
+def _exact(packed, o, d, tmax, sd, anyhit=False, active=None, prefix=None):
+    """Kernel (with and without the count) against the plain version, bit
+    for bit on every lane: slot, t and steps."""
+    n = o.shape[0]
+    mask = active
+    if prefix is not None:
+        mask = torch.arange(n, device=o.device) < prefix
+    kw = dict(active=active, active_prefix=prefix, anyhit=anyhit,
+              stack_depth=sd)
+    ks, kt = ops.packet_intersect(packed, o, d, RAY_MIN, tmax, **kw)
+    cs, ct, cn = ops.packet_intersect(packed, o, d, RAY_MIN, tmax,
+                                      count_steps=True, **kw)
+    ps, pt, pn = trav.intersect_scene(None, None, None, o, d, RAY_MIN, tmax,
+                                      anyhit=anyhit, stack_depth=sd,
+                                      active=mask, packed=packed,
+                                      count_steps=True)
+    torch.cuda.synchronize()
+    for got in ((ks, kt), (cs, ct)):
+        assert torch.equal(got[0], ps) and torch.equal(got[1], pt)
+    assert torch.equal(cn, pn)
+    return cn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_kernel_exact_on_deep_soup_stream(device, anyhit):
+    fb, packed = _soup_stream()
+    sd = fb.max_depth + 2
+    assert sd > 16                          # deeper than TestObj's tree
+    o, d, g = _rays(N, 13)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    act = torch.from_numpy(g.random(N) < 0.7).to(device)
+    _exact(packed, o, d, RAY_MAX, sd, anyhit=anyhit,
+           active=act if anyhit else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 31, 397, 4096])
+def test_kernel_exact_at_small_and_ragged_sizes(device, n):
+    fb, packed = _testobj()
+    o, d, g = _rays(max(n, 1), 17)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    o, d = o[:n].contiguous(), d[:n].contiguous()
+    sd = fb.max_depth + 2
+    if n == 0:
+        s, t = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX,
+                                    stack_depth=sd)
+        assert s.shape == (0,) and t.shape == (0,)
+        return
+    _exact(packed, o, d, RAY_MAX, sd, prefix=max(n - 3, 0))
+    tmax = torch.from_numpy(g.uniform(0.5, 6.0, n).astype(np.float32)) \
+        .to(device)
+    act = torch.from_numpy(g.random(n) < 0.6).to(device)
+    _exact(packed, o, d, tmax, sd, active=act)
+
+
+@pytest.mark.cuda
+def test_kernel_exact_with_dropped_pushes(device):
+    """stack_depth=1: every push past the first is dropped, in the kernel
+    as in the plain version."""
+    fb, packed = _testobj()
+    o, d, _ = _rays(N, 19)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    _exact(packed, o, d, RAY_MAX, 1)
+    _exact(packed, o, d, RAY_MAX, 1, anyhit=True)
+
+
+@pytest.mark.cuda
+def test_two_launches_give_identical_outputs(device):
+    fb, packed = _testobj()
+    o, d, g = _rays(N, 23)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    act = torch.from_numpy(g.random(N) < 0.5).to(device)
+    sd = fb.max_depth + 2
+    a = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX, stack_depth=sd,
+                             active=act, anyhit=True, count_steps=True)
+    b = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX, stack_depth=sd,
+                             active=act, anyhit=True, count_steps=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_measured_warp_steps_equal_the_pool_order_model(device):
+    """The counting kernel's warp-steps on the card are the census model
+    of warps in lane order: the kernel walks one ray per thread."""
+    from tpu_pathtracer_torch.tools import probe_steps
+    fb, packed = _testobj()
+    o, d, g = _rays(N, 29)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    act = torch.from_numpy(g.random(N) < 0.7).to(device)
+    steps = _exact(packed, o, d, RAY_MAX, fb.max_depth + 2, active=act)
+    c = probe_steps.census(steps, act)
+    assert int(ops.last_warp_steps()) == c["warp_steps"]
+
+
+@pytest.mark.cuda
+def test_refused_launch_is_reported_and_raised(device, monkeypatch):
+    """tpt_traverse returns the code of a launch it refuses (here a stack
+    deeper than the kernel's), and the wrapper raises on any nonzero
+    code."""
+    fb, packed = _testobj()
+    o, d, _ = _rays(64, 31)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    slot = torch.empty(64, dtype=torch.int32, device=device)
+    t = torch.empty(64, dtype=torch.float32, device=device)
+    err = ops._lib().tpt_traverse(
+        packed.data_ptr(), o.data_ptr(), d.data_ptr(), RAY_MIN, RAY_MAX,
+        None, 64, None, 64, ops.MAX_STACK_DEPTH + 1, 0, slot.data_ptr(),
+        t.data_ptr(), None, None, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+    class Refusing:
+        @staticmethod
+        def tpt_traverse(*args):
+            return err
+    monkeypatch.setattr(ops, "_lib", lambda: Refusing)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX, stack_depth=4)
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [False, True])
+def test_bare_launch_equals_the_wrapper_and_counts_nothing(device, count):
+    """ops.launch_fn (the bare C entry, for timing) gives the wrapper's
+    outputs on every lane and leaves the launch counts as they were."""
+    fb, packed = _testobj()
+    o, d, g = _rays(N, 41)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    act = torch.from_numpy(g.random(N) < 0.5).to(device)
+    kw = dict(active=act, anyhit=True, stack_depth=fb.max_depth + 2,
+              count_steps=count)
+    want = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX, **kw)
+    before = dict(ops.LAUNCHES)
+    launch = ops.launch_fn(packed, o, d, RAY_MIN, RAY_MAX, **kw)
+    for _ in range(2):
+        got = launch()
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    assert ops.LAUNCHES == before

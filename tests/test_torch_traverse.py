@@ -234,3 +234,92 @@ def test_cpu_wrapper_launches_nothing():
     _call()
     _call(anyhit=True)
     assert tops.LAUNCHES == before
+
+
+def test_plain_traversal_with_dropped_pushes_only_misses():
+    """stack_depth=1 drops every push past the first (the kernel's rule,
+    which it holds bit for bit; the JAX packet kernel leaves an overflow
+    undefined): a lane can only miss triangles, never find a closer hit."""
+    fb, packed = _testobj()
+    o, d, _ = _rays(4096, 37)
+    args = (None, None, None, torch.from_numpy(o), torch.from_numpy(d),
+            RAY_MIN, RAY_MAX)
+    fs, ft = ttrav.intersect_scene(*args, stack_depth=fb.max_depth + 2,
+                                   packed=torch.from_numpy(packed))
+    os_, ot = ttrav.intersect_scene(*args, stack_depth=1,
+                                    packed=torch.from_numpy(packed))
+    assert bool((ot >= ft).all())
+    same = os_ == fs
+    assert torch.equal(ot[same], ft[same])
+    assert bool((~same).any())
+
+
+def test_cpu_count_steps_measures_no_warp_steps():
+    """Warp-steps are measured by the kernel on the card only: a CPU
+    count leaves last_warp_steps as it was."""
+    before = tops._last_warp_steps
+    _call(count_steps=True)
+    assert tops._last_warp_steps is before
+
+
+def test_probe_ray_sets_on_cpu():
+    """The probe's camera rays are unit directions in lane order and its
+    incoherent origins lie in the scene box."""
+    from tpu_pathtracer_torch.tools import probe_steps
+    cpu = torch.device("cpu")
+    o, d = probe_steps.camera_rays(16, cpu)
+    assert o.shape == d.shape == (256, 3)
+    torch.testing.assert_close(d.norm(dim=1), torch.ones(256), rtol=1e-5,
+                               atol=0.0)
+    fb, _ = _testobj()
+    o, d = probe_steps.incoherent_rays(512, fb, 3, cpu)
+    lo, hi = torch.from_numpy(fb.root_lo), torch.from_numpy(fb.root_hi)
+    assert bool(((o >= lo) & (o <= hi)).all())
+    torch.testing.assert_close(d.norm(dim=1), torch.ones(512), rtol=1e-5,
+                               atol=0.0)
+
+
+def test_probe_camera_rays_leave_the_pinhole_toward_the_scene():
+    """The default camera is a pinhole (aperture 0) orbiting its centre at
+    its radius: every camera ray starts at the one eye point, and every
+    direction leans toward the centre."""
+    from tpu_pathtracer_torch.scene.demo import default_camera
+    from tpu_pathtracer_torch.tools import probe_steps
+    cam = default_camera(8, 8)
+    o, d = probe_steps.camera_rays(8, torch.device("cpu"))
+    assert o.dtype == d.dtype == torch.float32
+    assert torch.equal(o, o[:1].expand_as(o))
+    centre = torch.tensor(cam.center_position, dtype=torch.float32)
+    torch.testing.assert_close((o[0] - centre).norm(),
+                               torch.tensor(cam.radius), rtol=1e-5, atol=0.0)
+    assert bool(((d * (centre - o)).sum(dim=1) > 0).all())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(count_steps=True),
+    dict(active=torch.ones(16, dtype=torch.bool), anyhit=True),
+])
+def test_bare_launch_refuses_cpu_tensors(kw):
+    """launch_fn times the kernel alone and exists on the card only: a CPU
+    tensor raises instead of reaching the plain version."""
+    _, fb, packed = _small()
+    o, d, _ = _rays(16, 3)
+    with pytest.raises(ValueError, match="current CUDA device"):
+        tops.launch_fn(torch.from_numpy(packed), torch.from_numpy(o),
+                       torch.from_numpy(d), RAY_MIN, RAY_MAX, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(active=torch.ones(16, dtype=torch.bool), active_prefix=3),
+    dict(stack_depth=0),
+    dict(stack_depth=65),
+])
+def test_bare_launch_checks_arguments(kw):
+    """launch_fn applies the wrapper's argument checks before any device
+    check."""
+    _, fb, packed = _small()
+    o, d, _ = _rays(16, 3)
+    with pytest.raises(ValueError, match="active|stack_depth"):
+        tops.launch_fn(torch.from_numpy(packed), torch.from_numpy(o),
+                       torch.from_numpy(d), RAY_MIN, RAY_MAX, **kw)

@@ -1,45 +1,56 @@
-// Per-thread BVH traversal over the packed (K,16) primitive stream.
+// BVH traversal over the packed (K,16) primitive stream, one ray per thread.
 //
 // Replaces: tpu_pathtracer/ops/traverse_packet.py, packet_intersect ->
 // _queue_kernel with the fused _make_step (the Pallas TPU packet kernel),
 // in its closest-hit form (extension trace; prefix or mask, scalar or
-// per-lane tmax) and its any-hit form (NEE shadow trace, mask).
+// per-lane tmax) and its any-hit form (NEE shadow trace, mask), each with
+// or without the step count.
 //
 // What it computes is what _make_step computes for one lane: the ooeps
-// inverse direction, two child slab tests per node row over [tmin, hit_t],
-// the Woop unit-triangle test with t > tmin, t < hit_t and the u, v bounds,
-// leaf runs that end at the meta "last" flag, the SENTINEL / ~row cursor
-// convention of accel/flatten.py, and slot -1, t = tmax for lanes that are
-// inactive or past the prefix. The TPU kernel walks a packet of rays behind
-// one scalar cursor because the TPU has no per-lane gather; a Hopper thread
-// walks its own ray with its own stack (Aila-Laine while-while), so the
-// queue claim, the tmax-sign encoding, the SMEM table residency and the
-// any-hit early-stop reduction, which schedule work on the TPU, are gone.
-// Near-child order uses the thread's own entry distances instead of the
-// packet's min-reductions; that can change only which slot wins an exact
-// tie. The arithmetic follows tracer/traverse.py:intersect_scene (the plain
-// version) term for term; built with --fmad=false it gives the same bits.
+// inverse direction, two child slab tests per node row over [tmin, hit_t]
+// with the near child first (`c1min < c0min` swaps), the Woop unit-triangle
+// test with t > tmin, t < hit_t and the u, v bounds, leaf runs that end at
+// the meta "last" flag, the SENTINEL / ~row cursor convention of
+// accel/flatten.py, pushes dropped past stack_depth, and slot -1, t = tmax
+// for lanes that are inactive or past the prefix. The arithmetic follows
+// tracer/traverse.py:intersect_scene (the plain version) term for term;
+// built with --fmad=false every lane gives its bits.
 //
-// What bounds it on an H100: dependent 64-byte row loads (latency) and warp
-// divergence, not bandwidth or FLOPs. The stream of the demo scene is
-// 5,803 rows = 371 KB, so it sits in the 50 MB L2 after the first touches;
-// every step is one row fetch whose address depends on the previous step.
-// The design answers with many threads in flight (128-thread blocks, one
-// ray per thread, no shared memory) so the SMs hide the load latency, and
-// with 16-byte read-only loads (__ldg of four float4 per row). Coherent
-// callers (the regen pool is compacted by hit slot and direction octant)
-// keep a warp's rows close. The stack lives in local memory (L1-cached).
+// What bounds it on an H100. Not bytes (a 1M-ray trace moves ~34 MB, 10 us
+// at 3.35 TB/s) and not the FP32 rate: a step is one dependent 64-byte row
+// fetch and 60-70 instructions (node ~65, triangle ~55), held by the
+// issue rate and the load/store unit (a warp-step's row loads cost as
+// many L1 wavefronts as its lanes walk rows apart) and by latency below
+// ~48 warps an SM. So the time is the warp-steps paid
+// (a warp runs until its slowest lane is done: +80% over the live steps on
+// the mid-frame pool, +18% on camera rays) times the cost of a warp-step,
+// and that cost is lowest when a warp's lanes walk the same rows and the
+// same kind of row together.
 //
-// Step census (kCount): out_steps[i] is the number of loop iterations in
-// which the thread's cursor was not SENTINEL, i.e. the rows it fetched; 0
-// for inactive lanes and lanes past the prefix. The TPU kernel
-// (count_steps=True) stores the PACKET's count on every lane of the packet.
-// For a packet of identical rays the two agree exactly in closest hit; in
-// any hit the thread stops at its hit while a finished packet still pops
-// its remaining node rows, one step per stack entry, so the thread's count
-// is <= the packet's, equal where the ray misses. The count costs one
-// register and one store, in instantiations of their own: the two
-// non-counting ones are unchanged.
+// The design keeps exactly that: one ray per thread in 128-thread blocks,
+// so a warp walks 32 consecutive rays of a compacted (coherent) pool in
+// lockstep, at 40 registers and 48 warps an SM, with a 64-entry stack in
+// local memory. Measured on the card and left out because each made the
+// kernel slower (PERF.md gives the numbers): persistent warps with dynamic
+// ray fetch (Aila & Laine 2009), alone or with while-while passes, a
+// prefetched next batch or a refill threshold; the BFS top of the stream in
+// shared memory (L1 already holds it); a shared-memory stack; a
+// compile-time stack of 16/32/64 entries chosen from stack_depth; and
+// parking each warp's last lanes for a second, dense kernel. The
+// persistent and parking designs cut the warp-steps paid (the pool's +80%
+// to +21-39%) but mixed rays and phases in a warp-step or cost occupancy,
+// and a warp-step then cost more than the steps saved.
+//
+// Step census (kCount): out_steps[i] is the number of rows ray i fetched
+// (0 for inactive lanes and lanes past the prefix). The TPU kernel
+// (count_steps=True) stores the PACKET's count on every lane of the packet:
+// for a packet of identical rays the two agree in closest hit; in any hit
+// the thread stops at its hit while a finished packet still pops its node
+// rows, so the thread's count is <= the packet's, equal where the ray
+// misses. Besides, each block adds its warps' passes (a warp's pass count
+// is the most steps of its lanes) to the one counter *warp_steps with one
+// atomicAdd: 32 x that sum is the thread-steps the card paid. The count
+// lives in instantiations of its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,11 +58,15 @@
 namespace {
 
 constexpr int kSentinel = 0x76543210;
-constexpr int kMaxStack = 64;
 constexpr int kBlock = 128;
+constexpr int kMaxStack = 64;
+// 12 blocks of 4 warps an SM: holds the kernel to 40 registers (without
+// it the counting word and the whole-warp exit take 42-47, which leaves
+// 40 warps an SM and was 1-3% slower on the card)
+constexpr int kMinBlocks = 12;
 
 template <bool kAnyHit, bool kCount>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 traverse_kernel(const float4* __restrict__ table,
                 const float* __restrict__ orig,
                 const float* __restrict__ dir,
@@ -60,129 +75,152 @@ traverse_kernel(const float4* __restrict__ table,
                 int n_prefix, const uint8_t* __restrict__ active,
                 int n, int stack_depth,
                 int* __restrict__ out_slot, float* __restrict__ out_t,
-                int* __restrict__ out_steps) {
+                int* __restrict__ out_steps,
+                unsigned long long* __restrict__ warp_steps) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float hit_t = tmax_lane != nullptr ? tmax_lane[i] : tmax_scalar;
-  int hit_slot = -1;
   int steps = 0;
-  const bool act = active != nullptr ? active[i] != 0 : i < n_prefix;
-  if (act) {
-    const float ox = orig[3 * i], oy = orig[3 * i + 1], oz = orig[3 * i + 2];
-    const float dx = dir[3 * i], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
-    const float ooeps = 0x1p-80f;
-    const float sdx = fabsf(dx) > ooeps ? dx : (dx >= 0.0f ? ooeps : -ooeps);
-    const float sdy = fabsf(dy) > ooeps ? dy : (dy >= 0.0f ? ooeps : -ooeps);
-    const float sdz = fabsf(dz) > ooeps ? dz : (dz >= 0.0f ? ooeps : -ooeps);
-    const float idx = 1.0f / sdx, idy = 1.0f / sdy, idz = 1.0f / sdz;
-    const float oodx = ox * idx, oody = oy * idy, oodz = oz * idz;
+  if (i < n) {
+    float hit_t = tmax_lane != nullptr ? tmax_lane[i] : tmax_scalar;
+    int hit_slot = -1;
+    const bool act = active != nullptr ? active[i] != 0 : i < n_prefix;
+    if (act) {
+      const float ox = orig[3 * i], oy = orig[3 * i + 1], oz = orig[3 * i + 2];
+      const float dx = dir[3 * i], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
+      const float ooeps = 0x1p-80f;
+      const float sdx = fabsf(dx) > ooeps ? dx : (dx >= 0.0f ? ooeps : -ooeps);
+      const float sdy = fabsf(dy) > ooeps ? dy : (dy >= 0.0f ? ooeps : -ooeps);
+      const float sdz = fabsf(dz) > ooeps ? dz : (dz >= 0.0f ? ooeps : -ooeps);
+      const float idx = 1.0f / sdx, idy = 1.0f / sdy, idz = 1.0f / sdz;
+      const float oodx = ox * idx, oody = oy * idy, oodz = oz * idz;
 
-    int stack[kMaxStack];
-    int sp = 0;
-    int cur = 0;
-    while (cur != kSentinel) {
-      if (kCount) ++steps;
-      const int row = cur >= 0 ? cur : ~cur;
-      const float4 r0 = __ldg(table + 4 * row);
-      const float4 r1 = __ldg(table + 4 * row + 1);
-      const float4 r2 = __ldg(table + 4 * row + 2);
-      const float4 r3 = __ldg(table + 4 * row + 3);
-      const int m0 = __float_as_int(r3.x);
-      const int m1 = __float_as_int(r3.y);
-      if (cur >= 0) {
-        // node row: [c0.lo.x c0.hi.x c0.lo.y c0.hi.y | c1.lo.x c1.hi.x
-        //            c1.lo.y c1.hi.y | c0.lo.z c0.hi.z c1.lo.z c1.hi.z]
-        const float c0lox = r0.x * idx - oodx, c0hix = r0.y * idx - oodx;
-        const float c0loy = r0.z * idy - oody, c0hiy = r0.w * idy - oody;
-        const float c1lox = r1.x * idx - oodx, c1hix = r1.y * idx - oodx;
-        const float c1loy = r1.z * idy - oody, c1hiy = r1.w * idy - oody;
-        const float c0loz = r2.x * idz - oodz, c0hiz = r2.y * idz - oodz;
-        const float c1loz = r2.z * idz - oodz, c1hiz = r2.w * idz - oodz;
-        const float c0min = fmaxf(fmaxf(fminf(c0lox, c0hix), fminf(c0loy, c0hiy)),
-                                  fmaxf(fminf(c0loz, c0hiz), tmin));
-        const float c0max = fminf(fminf(fmaxf(c0lox, c0hix), fmaxf(c0loy, c0hiy)),
-                                  fminf(fmaxf(c0loz, c0hiz), hit_t));
-        const float c1min = fmaxf(fmaxf(fminf(c1lox, c1hix), fminf(c1loy, c1hiy)),
-                                  fmaxf(fminf(c1loz, c1hiz), tmin));
-        const float c1max = fminf(fminf(fmaxf(c1lox, c1hix), fmaxf(c1loy, c1hiy)),
-                                  fminf(fmaxf(c1loz, c1hiz), hit_t));
-        const bool trav0 = c0min <= c0max;
-        const bool trav1 = c1min <= c1max;
-        if (trav0 && trav1) {
-          const bool swap = c1min < c0min;
-          if (sp < stack_depth) stack[sp++] = swap ? m0 : m1;
-          cur = swap ? m1 : m0;
-        } else if (trav0) {
-          cur = m0;
-        } else if (trav1) {
-          cur = m1;
+      int stack[kMaxStack];
+      int sp = 0;
+      int cur = 0;
+      while (cur != kSentinel) {
+        if (kCount) ++steps;
+        const int row = cur >= 0 ? cur : ~cur;
+        const float4 r0 = __ldg(table + 4 * row);
+        const float4 r1 = __ldg(table + 4 * row + 1);
+        const float4 r2 = __ldg(table + 4 * row + 2);
+        const float4 r3 = __ldg(table + 4 * row + 3);
+        const int m0 = __float_as_int(r3.x);
+        const int m1 = __float_as_int(r3.y);
+        if (cur >= 0) {
+          // node row: [c0.lo.x c0.hi.x c0.lo.y c0.hi.y | c1.lo.x c1.hi.x
+          //            c1.lo.y c1.hi.y | c0.lo.z c0.hi.z c1.lo.z c1.hi.z]
+          const float c0lox = r0.x * idx - oodx, c0hix = r0.y * idx - oodx;
+          const float c0loy = r0.z * idy - oody, c0hiy = r0.w * idy - oody;
+          const float c1lox = r1.x * idx - oodx, c1hix = r1.y * idx - oodx;
+          const float c1loy = r1.z * idy - oody, c1hiy = r1.w * idy - oody;
+          const float c0loz = r2.x * idz - oodz, c0hiz = r2.y * idz - oodz;
+          const float c1loz = r2.z * idz - oodz, c1hiz = r2.w * idz - oodz;
+          const float c0min = fmaxf(fmaxf(fminf(c0lox, c0hix), fminf(c0loy, c0hiy)),
+                                    fmaxf(fminf(c0loz, c0hiz), tmin));
+          const float c0max = fminf(fminf(fmaxf(c0lox, c0hix), fmaxf(c0loy, c0hiy)),
+                                    fminf(fmaxf(c0loz, c0hiz), hit_t));
+          const float c1min = fmaxf(fmaxf(fminf(c1lox, c1hix), fminf(c1loy, c1hiy)),
+                                    fmaxf(fminf(c1loz, c1hiz), tmin));
+          const float c1max = fminf(fminf(fmaxf(c1lox, c1hix), fmaxf(c1loy, c1hiy)),
+                                    fminf(fmaxf(c1loz, c1hiz), hit_t));
+          const bool trav0 = c0min <= c0max;
+          const bool trav1 = c1min <= c1max;
+          if (trav0 && trav1) {
+            const bool swap = c1min < c0min;
+            if (sp < stack_depth) stack[sp++] = swap ? m0 : m1;
+            cur = swap ? m1 : m0;
+          } else if (trav0) {
+            cur = m0;
+          } else if (trav1) {
+            cur = m1;
+          } else {
+            cur = sp > 0 ? stack[--sp] : kSentinel;
+          }
         } else {
-          cur = sp > 0 ? stack[--sp] : kSentinel;
+          // triangle row: Woop matrix rows m0 | m1 | m2
+          const float Oz = r0.w - ox * r0.x - oy * r0.y - oz * r0.z;
+          const float invDz = 1.0f / (dx * r0.x + dy * r0.y + dz * r0.z);
+          const float t = Oz * invDz;
+          const float Ox = r1.w + ox * r1.x + oy * r1.y + oz * r1.z;
+          const float u = Ox + t * (dx * r1.x + dy * r1.y + dz * r1.z);
+          const float Oy = r2.w + ox * r2.x + oy * r2.y + oz * r2.z;
+          const float v = Oy + t * (dx * r2.x + dy * r2.y + dz * r2.z);
+          const bool hit = t > tmin && t < hit_t && u >= 0.0f && u <= 1.0f &&
+                           v >= 0.0f && u + v <= 1.0f;
+          if (hit) {
+            hit_t = t;
+            hit_slot = m0;
+            if (kAnyHit) break;
+          }
+          cur = m1 != 0 ? (sp > 0 ? stack[--sp] : kSentinel) : cur - 1;
         }
-      } else {
-        // triangle row: Woop matrix rows m0 | m1 | m2
-        const float Oz = r0.w - ox * r0.x - oy * r0.y - oz * r0.z;
-        const float invDz = 1.0f / (dx * r0.x + dy * r0.y + dz * r0.z);
-        const float t = Oz * invDz;
-        const float Ox = r1.w + ox * r1.x + oy * r1.y + oz * r1.z;
-        const float u = Ox + t * (dx * r1.x + dy * r1.y + dz * r1.z);
-        const float Oy = r2.w + ox * r2.x + oy * r2.y + oz * r2.z;
-        const float v = Oy + t * (dx * r2.x + dy * r2.y + dz * r2.z);
-        const bool hit = t > tmin && t < hit_t && u >= 0.0f && u <= 1.0f &&
-                         v >= 0.0f && u + v <= 1.0f;
-        if (hit) {
-          hit_t = t;
-          hit_slot = m0;
-          if (kAnyHit) break;
-        }
-        cur = m1 != 0 ? (sp > 0 ? stack[--sp] : kSentinel) : cur - 1;
       }
     }
+    out_slot[i] = hit_slot;
+    out_t[i] = hit_t;
+    if (kCount) out_steps[i] = steps;
   }
-  out_slot[i] = hit_slot;
-  out_t[i] = hit_t;
-  if (kCount) out_steps[i] = steps;
+  if constexpr (kCount) {
+    // every thread of the block is here: a warp's passes are the most steps
+    // of its lanes; the block adds its warps' passes with one atomic
+    __shared__ unsigned passes[kBlock / 32];
+    const unsigned most = __reduce_max_sync(0xffffffffu,
+                                            static_cast<unsigned>(steps));
+    if ((threadIdx.x & 31u) == 0) passes[threadIdx.x / 32] = most;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long sum = 0;
+      for (int w = 0; w < kBlock / 32; ++w) sum += passes[w];
+      if (sum > 0) atomicAdd(warp_steps, sum);
+    }
+  }
 }
 
 template <bool kAnyHit, bool kCount>
-void launch(dim3 grid, cudaStream_t s, const void* table,
-            const void* orig, const void* dir, float tmin,
-            float tmax_scalar, const void* tmax_lane, int n_prefix,
-            const void* active, int n, int stack_depth, void* out_slot,
-            void* out_t, void* out_steps) {
-  traverse_kernel<kAnyHit, kCount><<<grid, kBlock, 0, s>>>(
+int launch(int blocks, cudaStream_t s, const void* table, const void* orig,
+           const void* dir, float tmin, float tmax_scalar,
+           const void* tmax_lane, int n_prefix, const void* active, int n,
+           int stack_depth, void* out_slot, void* out_t, void* out_steps,
+           void* warp_steps) {
+  traverse_kernel<kAnyHit, kCount><<<blocks, kBlock, 0, s>>>(
       static_cast<const float4*>(table), static_cast<const float*>(orig),
       static_cast<const float*>(dir), tmin, tmax_scalar,
       static_cast<const float*>(tmax_lane), n_prefix,
       static_cast<const uint8_t*>(active), n, stack_depth,
       static_cast<int*>(out_slot), static_cast<float*>(out_t),
-      static_cast<int*>(out_steps));
+      static_cast<int*>(out_steps),
+      static_cast<unsigned long long*>(warp_steps));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. Launches on `stream` and returns the
-// launch's cudaGetLastError() code (0 on success). tmax_lane and active may
-// be null: then tmax_scalar, and the prefix [0, n_prefix), are used.
-// out_steps may be null; when it is not, the counting instantiation runs.
+// launch's error code (0 on success; a refused launch returns its code
+// here). tmax_lane and active may be null: then tmax_scalar, and the prefix
+// [0, n_prefix), are used. out_steps may be null; when it is not, the
+// counting instantiation runs, and its warp-steps go to *warp_steps (one
+// 8-byte word, zeroed here on the stream). One thread per lane:
+// ceil(n / kBlock) blocks.
 extern "C" int tpt_traverse(const void* table, const void* orig,
                             const void* dir, float tmin, float tmax_scalar,
                             const void* tmax_lane, int n_prefix,
                             const void* active, int n, int stack_depth,
                             int anyhit, void* out_slot, void* out_t,
-                            void* out_steps, void* stream) {
-  const dim3 grid((n + kBlock - 1) / kBlock);
+                            void* out_steps, void* warp_steps, void* stream) {
+  const bool count = out_steps != nullptr;
+  if (stack_depth < 1 || stack_depth > kMaxStack || n < 1 ||
+      (count && warp_steps == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto fn = anyhit ? (count ? &launch<true, true> : &launch<true, false>)
+                         : (count ? &launch<false, true>
+                                  : &launch<false, false>);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using Launch = void (*)(dim3, cudaStream_t, const void*, const void*,
-                         const void*, float, float, const void*, int,
-                         const void*, int, int, void*, void*, void*);
-  Launch fn;
-  if (anyhit) {
-    fn = out_steps != nullptr ? &launch<true, true> : &launch<true, false>;
-  } else {
-    fn = out_steps != nullptr ? &launch<false, true> : &launch<false, false>;
+  if (count) {
+    const cudaError_t e = cudaMemsetAsync(
+        warp_steps, 0, sizeof(unsigned long long), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fn(grid, s, table, orig, dir, tmin, tmax_scalar, tmax_lane, n_prefix,
-     active, n, stack_depth, out_slot, out_t, out_steps);
-  return static_cast<int>(cudaGetLastError());
+  return fn((n + kBlock - 1) / kBlock, s, table, orig, dir, tmin, tmax_scalar,
+            tmax_lane, n_prefix, active, n, stack_depth, out_slot, out_t,
+            out_steps, warp_steps);
 }

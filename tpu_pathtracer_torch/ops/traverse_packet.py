@@ -41,6 +41,18 @@ MAX_STACK_DEPTH = 64          # kMaxStack in csrc/traverse.cu
 LAUNCHES = {"traverse_closest": 0, "traverse_anyhit": 0,
             "traverse_closest_steps": 0, "traverse_anyhit_steps": 0}
 
+# The warp-step counter of the last counting launch on the card (a 0-d
+# int64 tensor on the device), or None.
+_last_warp_steps = None
+
+
+def last_warp_steps():
+    """Sum over warps of the passes (the most steps of any of its lanes) of
+    the last `count_steps=True` launch on the card: 32 x it is the
+    thread-steps the card paid. A 0-d device tensor (reading it syncs);
+    None before any such launch."""
+    return _last_warp_steps
+
 
 def table_fits_smem(n_rows):
     """True when a packed stream of n_rows 14-col f32 rows fits the TPU
@@ -116,21 +128,22 @@ def packet_intersect(packed, orig, raydir, tmin, tmax, anyhit=False,
                    stack_depth, active, active_prefix, count_steps)
 
 
-def _kernel_fn():
+def _lib():
     from ..utils.cuda_build import load
     lib = load("traverse")
-    fn = lib.tpt_traverse
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_float, ctypes.c_float, p,
-                       ctypes.c_int, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.tpt_traverse.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tpt_traverse.argtypes = [p, p, p, f, f, p, i, p, i, i, i, p, p,
+                                     p, p, p]
+        lib.tpt_traverse.restype = i
+    return lib
 
 
-def _launch(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
-            active_prefix, count_steps):
+def _prepare(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
+             active_prefix, count_steps):
+    """Check the CUDA arguments and allocate the outputs. Returns (outputs,
+    warp-step counter or None, tpt_traverse's arguments or None when N is
+    0)."""
     device = orig.device
     N = orig.shape[0]
     K = packed.shape[0]
@@ -159,21 +172,67 @@ def _launch(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
         if count_steps else None
     out = (slot, t, steps) if count_steps else (slot, t)
     if N == 0:
+        return out, None, None
+    warp_steps = torch.empty((), dtype=torch.int64, device=device) \
+        if count_steps else None
+    stream = torch.cuda.current_stream(device).cuda_stream
+    args = (packed.data_ptr(), orig.data_ptr(), raydir.data_ptr(),
+            tmin, tmax_scalar,
+            tmax_lane.data_ptr() if tmax_lane is not None else None,
+            n_prefix, active.data_ptr() if active is not None else None,
+            N, int(stack_depth), int(bool(anyhit)),
+            slot.data_ptr(), t.data_ptr(),
+            steps.data_ptr() if count_steps else None,
+            warp_steps.data_ptr() if count_steps else None, stream)
+    return out, warp_steps, args
+
+
+def _launch(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
+            active_prefix, count_steps):
+    global _last_warp_steps
+    out, warp_steps, args = _prepare(packed, orig, raydir, tmin, tmax,
+                                     anyhit, stack_depth, active,
+                                     active_prefix, count_steps)
+    if args is None:
         return out
-    fn = _kernel_fn()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(packed.data_ptr(), orig.data_ptr(), raydir.data_ptr(),
-                 tmin, tmax_scalar,
-                 tmax_lane.data_ptr() if tmax_lane is not None else None,
-                 n_prefix,
-                 active.data_ptr() if active is not None else None,
-                 N, int(stack_depth), int(bool(anyhit)),
-                 slot.data_ptr(), t.data_ptr(),
-                 steps.data_ptr() if count_steps else None, stream)
+    with torch.cuda.device(orig.device):
+        err = _lib().tpt_traverse(*args)
     if err != 0:
         raise RuntimeError("traverse kernel launch failed: CUDA error %d"
                            % err)
     name = "traverse_anyhit" if anyhit else "traverse_closest"
     LAUNCHES[name + "_steps" if count_steps else name] += 1
+    if count_steps:
+        _last_warp_steps = warp_steps
     return out
+
+
+def launch_fn(packed, orig, raydir, tmin, tmax, anyhit=False,
+              stack_depth=64, active=None, active_prefix=None,
+              count_steps=False):
+    """The bare launch, for timing the kernel alone: checks the arguments
+    (CUDA tensors on the current device) and allocates the outputs once,
+    then returns a function of no arguments that launches the kernel into
+    them through tpt_traverse and returns them, raising on a nonzero code.
+    The wrapper's host work stays out of its time, and its launches are
+    not counted in LAUNCHES."""
+    _check_args(packed.shape[0], tmin, tmax, active, active_prefix, "auto",
+                "fused", 0, 4, 1, stack_depth)
+    if orig.device.type != "cuda" or \
+            orig.device.index != torch.cuda.current_device():
+        raise ValueError("launch_fn: orig must lie on the current CUDA "
+                         "device, not %s" % orig.device)
+    if active_prefix is not None:
+        active_prefix = int(active_prefix)
+    out, _, args = _prepare(packed, orig, raydir, float(tmin), tmax, anyhit,
+                            stack_depth, active, active_prefix, count_steps)
+    fn = _lib().tpt_traverse
+
+    def launch():
+        if args is not None:
+            err = fn(*args)
+            if err != 0:
+                raise RuntimeError("traverse kernel launch failed: CUDA "
+                                   "error %d" % err)
+        return out
+    return launch

@@ -15,8 +15,13 @@ of 32 threads runs until its slowest lane is done, so over 32-lane warps
 in pool order it pays sum(32 * max(steps)) thread-steps for sum(steps)
 live ones. The oracle grouping (the same rays sorted by step count, then
 grouped in 32s) says what any reordering of the pool could save at most.
-On the card the closest-hit trace (without the count) is timed with CUDA
-events and divided by the warp-steps, sum(max(steps)) over warps.
+On the card the counting kernel also measures what its warps paid (each
+warp adds its passes on the card: `ops.traverse_packet.last_warp_steps`),
+printed beside the model; both traces (without the count) are timed with
+CUDA events and divided by the measured warp-steps.
+
+camera_rays and incoherent_rays make the 1M-ray sets that chip_smoke.py
+times the kernel on.
 
 --device cuda (the default) needs a card and fails without one; it never
 falls back. --device cpu runs the plain versions at a small size (64^2 by
@@ -50,7 +55,7 @@ def census(steps, active):
     oracle = np.pad(oracle, (0, -n % WARP)).reshape(-1, WARP).max(axis=1)
     live_sum = int(live.sum())
     return {
-        "rays": n, "steps_sum": live_sum,
+        "lanes": int(s.shape[0]), "rays": n, "steps_sum": live_sum,
         "mean": float(live.mean()), "p50": float(np.percentile(live, 50)),
         "p95": float(np.percentile(live, 95)), "max": int(live.max()),
         "warp_steps": int(w.sum()), "paid": int(w.sum()) * WARP,
@@ -69,6 +74,30 @@ def testobj_renderer(size, device, cache_dir=None):
                  height=size, device=device)
     cam = default_camera(size, size).build_render_camera()
     return r, torch.as_tensor(cam.as_array(), device=r.device)
+
+
+def camera_rays(n_side, device):
+    """Primary rays of the default camera over an n_side^2 image, in the
+    renderer's lane order (frame 1), as the first regen wave traces them."""
+    from ..core.rng import RaySampler, wang_hash
+    from ..scene.demo import default_camera
+    from ..tracer.renderer import generate_camera_rays, lane_pixel_xy
+    cam = default_camera(n_side, n_side).build_render_camera()
+    cam_vec = torch.as_tensor(cam.as_array(), device=device)
+    lanes = torch.arange(n_side * n_side, device=device)
+    rng = RaySampler.init(wang_hash(1), lanes)
+    px, py = lane_pixel_xy(lanes, n_side, n_side)
+    _, o, d = generate_camera_rays(cam_vec, rng, px.float(), py.float())
+    return o.contiguous(), d.contiguous()
+
+
+def incoherent_rays(n, fb, seed, device):
+    """Origins uniform in the scene box, directions uniform on the sphere."""
+    g = np.random.default_rng(seed)
+    o = g.uniform(fb.root_lo, fb.root_hi, (n, 3)).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.from_numpy(o).to(device), torch.from_numpy(d).to(device))
 
 
 def freeze_pool(renderer, cam_vec, waves, spp):
@@ -90,20 +119,32 @@ def trace_pool(renderer, pool, anyhit=False, count_steps=False):
 
 
 def run(renderer, cam_vec, waves_list, spp, timed):
-    """Census for each k in waves_list; returns a list of dicts."""
+    """Census for each k in waves_list; returns a list of dicts. On the
+    card each kind also gets measured_paid / measured_tax (the warp-steps
+    the counting kernel paid) and, with timed, trace_ms and
+    ns_per_warp_step; on the CPU they are None (not measured)."""
+    from ..ops.traverse_packet import last_warp_steps
+    on_card = renderer.device.type == "cuda"
     out = []
     for k in waves_list:
         pool = freeze_pool(renderer, cam_vec, k, spp)
         rec = {"after_waves": pool["waves"], "alive": pool["alive"]}
         for kind, anyhit in (("closest", False), ("anyhit", True)):
             steps = trace_pool(renderer, pool, anyhit, count_steps=True)[2]
-            rec[kind] = census(steps, pool["active"])
-        if timed:
-            from ..utils.timing import cuda_ms
-            ms = cuda_ms(lambda: trace_pool(renderer, pool), 20)
-            rec["closest"]["trace_ms"] = ms
-            rec["closest"]["ns_per_warp_step"] = \
-                ms * 1e6 / max(rec["closest"]["warp_steps"], 1)
+            c = census(steps, pool["active"])
+            c["measured_paid"] = c["measured_tax"] = None
+            c["trace_ms"] = c["ns_per_warp_step"] = None
+            if on_card:
+                c["measured_paid"] = WARP * int(last_warp_steps())
+                c["measured_tax"] = \
+                    c["measured_paid"] / max(c["steps_sum"], 1) - 1.0
+            if timed and on_card:
+                from ..utils.timing import cuda_ms
+                c["trace_ms"] = cuda_ms(
+                    lambda: trace_pool(renderer, pool, anyhit), 20)
+                c["ns_per_warp_step"] = c["trace_ms"] * 1e6 * WARP \
+                    / max(c["measured_paid"], 1)
+            rec[kind] = c
         out.append(rec)
         del pool
     return out
@@ -121,12 +162,17 @@ def report(rec):
             % (kind, c["mean"], c["p50"], c["p95"], c["max"], c["paid"] / 1e6,
                c["steps_sum"] / 1e6, 100 * c["tax"], c["oracle_paid"] / 1e6,
                100 * c["oracle_tax"]))
-    c = rec["closest"]
-    if "trace_ms" in c:
-        lines.append("  closest trace %.4f ms -> %.3f ns per warp-step"
-                     % (c["trace_ms"], c["ns_per_warp_step"]))
-    else:
-        lines.append("  trace time: not measured (cpu)")
+        if c["measured_paid"] is None:
+            lines.append("    measured on the card: not measured (cpu)")
+        else:
+            lines.append("    measured on the card: %.3fM thread-steps "
+                         "(+%.1f%%)" % (c["measured_paid"] / 1e6,
+                                        100 * c["measured_tax"]))
+        if c["trace_ms"] is None:
+            lines.append("    trace time: not measured")
+        else:
+            lines.append("    trace %.4f ms -> %.3f ns per warp-step"
+                         % (c["trace_ms"], c["ns_per_warp_step"]))
     return "\n".join(lines)
 
 

@@ -26,12 +26,19 @@ back to the CPU. Phases, each fatal on failure:
    traversal bound (section "bounds" below) and whose measured warp-steps
    (ops.traverse_packet.last_warp_steps) give the warps' tax over the live
    steps and ns per warp-step;
+3d. hold the shared-memory-table instantiations (table_mem="smem" on the
+   TestObj stream, "split" on the ~135k-triangle large_scene stream) to the
+   plain version and to the __ldg kernel: slot, t, steps and warp-steps
+   bit for bit on every lane, three forms, with and without the count, at
+   4,096, 65,536 and 1M lanes;
 3c. hold the row gather (wide C=128, flat (P,16), batch 8) and scatter
    kernels to their plain versions at P = 1,048,576, exactly, and time
    kernel, plain version and library call (torch.index_select /
    index_copy_) beside the byte bound;
-4. render the c1/c2/c3 golden configurations (96x96, 12 spp) on the card
-   and hold them to tests/goldens/*.npz under the gate statistics;
+4. render the c1..c7 golden configurations (96x96, 12 spp; c4 media, c5
+   BSSRDF, c6/c7 the ~105k-triangle organic blob with BSSRDF / a jade
+   medium) on the card and hold them to tests/goldens/*.npz under the gate
+   statistics;
 5. drive the main path: the default TestObj scene at 1024x1024, default
    RenderSettings (1M-lane regen pool), 4 spp through
    Renderer.render_frames, with the kernels' launch counts set to 0
@@ -41,6 +48,20 @@ back to the CPU. Phases, each fatal on failure:
    (modelled and measured warp tax), time both traces on the frozen pool
    beside their bound, counts set to 0 before and read after;
 5c. drive the row probe (tools/probe_dma.py) at P = 1,048,576 the same way;
+5d. time both residencies of the traversal table as bare launches on the
+   TestObj stream: 1M coherent rays (closest hit; any hit under a 50%
+   mask), 1M incoherent rays and the pool frozen after 3 waves (closest
+   and any hit), every output equal to the plain version's and the other
+   residency's on every lane, with S, block, shared bytes, registers, ns
+   per warp-step and the share of the bound, and a sweep of S;
+7. this slice's paths at full width: large_scene (surfaces),
+   large_organic_scene("sss") and ("media") at 1024x1024 with default
+   settings: a 1-spp warm-up, then 2 timed spp with every launch count set
+   to 0 before and read after (ms per 1-spp frame, waves, Mrays/s,
+   launches per frame), the same frames again with
+   packet_table_mem="split" (the path of the table instantiations), 5d's
+   timings on each stream, and on large_scene the step census under both
+   residencies (the path of the counting table instantiations);
 6. print the kernels line, the card line, and the result line (last).
 
 Bounds. A traversal kernel's bound is the larger of its bytes (active
@@ -237,6 +258,202 @@ def check_steps(np, torch, ops, trav, fb, packed, rays, tag, g):
     return agree
 
 
+def same(torch, a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_table(np, torch, ops, trav, fb, packed, tag, table_mem, g, dev,
+                camera_rays, incoherent_rays):
+    """Phase 3d on one stream: the kTable instantiations against the plain
+    version and the __ldg kernel, slot, t, steps and warp-steps, three
+    forms, at 4,096 (camera), 65,536 (incoherent) and 1M (camera) lanes."""
+    sd = fb.max_depth + 2
+    for rays in (camera_rays(64, dev), incoherent_rays(N_CHECK, fb, 9, dev),
+                 camera_rays(1024, dev)):
+        o, d = rays
+        n = o.shape[0]
+        for name, (kw, anyhit, mask, _, tmax) in trav_forms(
+                np, torch, g, n, dev).items():
+            def kern(tm, count):
+                return ops.packet_intersect(packed, o, d, RAY_MIN, tmax,
+                                            stack_depth=sd, count_steps=count,
+                                            table_mem=tm, **kw)
+            tab = kern(table_mem, True)
+            w_tab = int(ops.last_warp_steps())
+            ldg = kern("vmem", True)
+            w_ldg = int(ops.last_warp_steps())
+            tab2 = kern(table_mem, False)
+            plain = trav.intersect_scene(None, None, None, o, d, RAY_MIN,
+                                         tmax, anyhit=anyhit, stack_depth=sd,
+                                         active=mask, packed=packed,
+                                         count_steps=True)
+            torch.cuda.synchronize()
+            assert same(torch, tab, plain), (tag, n, name, "table != plain")
+            assert same(torch, tab, ldg), (tag, n, name, "table != __ldg")
+            assert same(torch, tab2, tab[:2]), (tag, n, name, "count changed")
+            assert w_tab == w_ldg, (tag, n, name, w_tab, w_ldg)
+            log("  table %-8s %-8s N %7d %-22s = plain = __ldg on every lane "
+                "(slot, t, steps; %d warp-steps)"
+                % (tag, table_mem, n, name, w_tab))
+
+
+def ptxas_registers(text):
+    """{(anyhit, count, table): registers} of traverse_kernel's
+    instantiations, from nvcc's -Xptxas -v output of csrc/traverse.cu."""
+    import re
+    regs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"traverse_kernelILb([01])ELb([01])ELb([01])E", line)
+        if m and "Compiling" in line:
+            cur = tuple(x == "1" for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            regs[cur] = int(m.group(1))
+            cur = None
+    return regs
+
+
+def residency_sets(np, torch, g, fb, pool, dev, camera_rays,
+                   incoherent_rays):
+    """The sets both residencies are timed on: {name: (o, d, kwargs,
+    anyhit, mask or None, active rays)}."""
+    co, cd = camera_rays(1024, dev)
+    io, idr = incoherent_rays(N_TIME, fb, 8, dev)
+    half = torch.from_numpy(g.random(N_TIME) < 0.5).to(dev)
+    act = pool["active"]
+    return {
+        "coherent_closest": (co, cd, dict(active_prefix=N_TIME), False, None,
+                             N_TIME),
+        "coherent_anyhit": (co, cd, dict(active=half, anyhit=True), True,
+                            half, int(half.sum())),
+        "incoherent_closest": (io, idr, dict(active_prefix=N_TIME), False,
+                               None, N_TIME),
+        "pool_closest": (pool["orig"], pool["dir"], dict(active=act), False,
+                         act, int(act.sum())),
+        "pool_anyhit": (pool["orig"], pool["dir"],
+                        dict(active=act, anyhit=True), True, act,
+                        int(act.sum())),
+    }
+
+
+def time_residency(torch, ops, trav, cuda_ms, packed, sd, sets, table_mem,
+                   tag, regs):
+    """Phase 5d on one stream: the __ldg kernel and the kTable kernel as
+    bare launches in turns (ldg, table, table, ldg) on each set, after
+    holding both to the plain version on every lane. Returns {set: dict}."""
+    K = packed.shape[0]
+    S, block, smem = ops.table_plan(K, N_TIME, table_mem)
+    out = {}
+    for name, (o, d, kw, anyhit, mask, n_act) in sets.items():
+        def bare(tm, count=False, rows=None):
+            return ops.launch_fn(packed, o, d, RAY_MIN, RAY_MAX,
+                                 stack_depth=sd, count_steps=count,
+                                 table_mem=tm, table_rows=rows, **kw)
+        got = {}
+        for tm in ("vmem", table_mem):
+            res = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX,
+                                       stack_depth=sd, count_steps=True,
+                                       table_mem=tm, **kw)
+            got[tm] = (res, int(ops.last_warp_steps()))
+
+        def plain():
+            return trav.intersect_scene(None, None, None, o, d, RAY_MIN,
+                                        RAY_MAX, anyhit=anyhit,
+                                        stack_depth=sd, active=mask,
+                                        packed=packed, count_steps=True)
+        p_ms = cuda_ms(plain, 1)
+        want = plain()
+        for tm, (res, _) in got.items():
+            assert same(torch, res, want), (tag, name, tm, "!= plain version")
+        warp_steps = got["vmem"][1]
+        assert got[table_mem][1] == warp_steps, (tag, name, "warp-steps")
+        steps_sum = int(want[2].sum().item())
+        f_l, f_t = bare("vmem"), bare(table_mem)
+        l1 = cuda_ms(f_l, 20)
+        t1 = cuda_ms(f_t, 20)
+        t2 = cuda_ms(f_t, 20)
+        l2 = cuda_ms(f_l, 20)
+        assert same(torch, f_t(), f_l()), (tag, name, "bare launches differ")
+        tc = cuda_ms(bare(table_mem, count=True), 20)
+        n = o.shape[0]
+        b, by, _, _ = trav_bound_ms(n, n_act, K, mask is not None, False,
+                                    steps_sum)
+        bc, byc, _, _ = trav_bound_ms(n, n_act, K, mask is not None, True,
+                                      steps_sum)
+        row = {"lanes": n, "rays": n_act, "steps_sum": steps_sum,
+               "steps_per_ray": steps_sum / max(n_act, 1),
+               "warp_steps": warp_steps, "ldg_ms": [l1, l2],
+               "table_ms": [t1, t2], "table_count_ms": tc, "plain_ms": p_ms,
+               "bound_ms": b, "bound_by": by, "count_bound_ms": bc,
+               "count_bound_by": byc,
+               "ldg_ns_per_warp_step": min(l1, l2) * 1e6 / warp_steps,
+               "table_ns_per_warp_step": min(t1, t2) * 1e6 / warp_steps,
+               "ldg_bound_share": b / min(l1, l2),
+               "table_bound_share": b / min(t1, t2), "max_abs_err": 0.0}
+        if name == "coherent_closest":
+            row["sweep_ms"] = {rows: cuda_ms(bare(table_mem, rows=rows), 20)
+                               for rows in (8, 32, 288)
+                               if rows <= min(K, ops.TABLE_MAX_ROWS)}
+        out[name] = row
+        log("  residency %-13s %-18s __ldg %.4f/%.4f ms (%.3f ns per "
+            "warp-step, %.1f%% of bound)  %s S=%d %.4f/%.4f ms (%.3f ns, "
+            "%.1f%%)  table/__ldg %.3f  [%.2f steps per ray, bound %.4f ms "
+            "by %s]%s"
+            % (tag, name, l1, l2, row["ldg_ns_per_warp_step"],
+               100 * row["ldg_bound_share"], table_mem, S, t1, t2,
+               row["table_ns_per_warp_step"], 100 * row["table_bound_share"],
+               min(t1, t2) / min(l1, l2), row["steps_per_ray"], b, by,
+               "  sweep S: " + ", ".join(
+                   "%d: %.4f" % kv for kv in row["sweep_ms"].items())
+               if "sweep_ms" in row else ""))
+    log("  residency %-13s plan: S %d rows, block %d, %d bytes of shared "
+        "memory a block; registers table %s, __ldg %s"
+        % (tag, S, block, smem,
+           sorted(v for k, v in regs.items() if k[2]) or "not built here",
+           sorted(v for k, v in regs.items() if not k[2])
+           or "not built here"))
+    return {"table_mem": table_mem, "S": S, "block": block,
+            "smem_bytes": smem, "sets": out}
+
+
+def timed_frames(np, torch, ops, r, rc, spp, tag):
+    """A 1-spp warm-up, then spp timed frames with every launch count set
+    to 0 before and read after. Returns the record and the image."""
+    r.render_frames(r.zeros_accum(), rc, 1, 1)
+    torch.cuda.synchronize()
+    for counts in (ops.LAUNCHES, ops.FORM_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t_host = time.time()
+    start.record()
+    acc, waves, rays = r.render_frames(r.zeros_accum(), rc, 1, spp,
+                                       with_stats=True)
+    stop.record()
+    torch.cuda.synchronize()
+    t_host = time.time() - t_host
+    launches = {**ops.LAUNCHES, **ops.FORM_LAUNCHES}
+    ms = start.elapsed_time(stop)
+    img = acc.cpu().numpy() / spp
+    assert img.shape == (r.width * r.height, 3), (tag, img.shape)
+    assert np.all(np.isfinite(img)), "%s: non-finite radiance" % tag
+    assert float(img.mean()) > 0.01, "%s: black image" % tag
+    rec = {"width": r.width, "height": r.height, "spp": spp,
+           "pool_lanes": r.settings.pool_lanes,
+           "table_mem": r.settings.packet_table_mem,
+           "ms_per_frame": ms / spp, "host_s": t_host, "waves": waves,
+           "traced_rays": rays, "mrays_per_s": rays / (ms / 1e3) / 1e6,
+           "mean_radiance": float(img.mean()), "launches": launches,
+           "launches_per_frame": {k: v / spp for k, v in launches.items()
+                                  if v}}
+    log("%s %dx%d x %d spp (table_mem=%s): %.1f ms per 1-spp frame, %d "
+        "waves, %.0f rays, %.1f Mrays/s, launches per frame %s"
+        % (tag, r.width, r.height, spp, rec["table_mem"], ms / spp, waves,
+           rays, rec["mrays_per_s"], rec["launches_per_frame"]))
+    return rec, img
+
+
 DMA_CASES = (("gather_wide", 128, "perm", 1, "gather"),
              ("gather_flat", 0, "perm", 1, "gather"),
              ("gather_batch8", 128, "run8", 8, "gather"),
@@ -302,13 +519,15 @@ def gate(np, img, want, name):
     return {"median_absdiff": med, "mean_ratio": ratio, "rmse": rmse}
 
 
-def golden_configs():
-    """The c1/c2/c3 configurations of tests/test_goldens.py."""
+def golden_configs(organic_sss_mats, organic_media_mats):
+    """The c1..c7 configurations of tests/test_goldens.py: {name:
+    (stream, materials, settings, aperture)}; stream "testobj" or
+    "organic"."""
     from tpu_pathtracer_torch.scene.config import (
-        MatDesc, MAT_DIFF, MAT_GLASS, MAT_REFL, MAT_FRESNEL)
+        MatDesc, MAT_DIFF, MAT_GLASS, MAT_REFL, MAT_FRESNEL, MAT_SUBSURFACE)
     from tpu_pathtracer_torch.tracer.wavefront import RenderSettings
     base = dict(use_envmap=True, use_texture=True)
-    return {
+    cfg = {
         "c1_lambertian": (
             [MatDesc(refltype=MAT_DIFF, useTexture=True),
              MatDesc(refltype=MAT_DIFF, objcol=(0.9, 0.3, 0.25)),
@@ -328,7 +547,32 @@ def golden_configs():
              MatDesc(refltype=MAT_GLASS),
              MatDesc(refltype=MAT_REFL)],
             RenderSettings(bounce_min=2, bounce_max=10, **base), 0.05),
+        "c4_media": (
+            [MatDesc(refltype=MAT_DIFF, useTexture=True),
+             MatDesc(refltype=MAT_DIFF),
+             MatDesc(refltype=MAT_GLASS, medium="tea"),
+             MatDesc(refltype=MAT_REFL)],
+            RenderSettings(bounce_min=2, bounce_max=10, has_media=True,
+                           **base), 0.0),
+        "c5_bssrdf": (
+            [MatDesc(refltype=MAT_DIFF, useTexture=True),
+             MatDesc(refltype=MAT_SUBSURFACE, objcol=(0.8, 0.75, 0.7),
+                     alphax=0.3, etaT=1.4, mfp=(0.3, 0.25, 0.2), ks=0.2),
+             MatDesc(refltype=MAT_GLASS),
+             MatDesc(refltype=MAT_REFL)],
+            RenderSettings(bounce_min=3, bounce_max=10, has_bssrdf=True,
+                           **base), 0.0),
     }
+    out = {k: ("testobj",) + v for k, v in cfg.items()}
+    out["c6_organic_sss"] = (
+        "organic", organic_sss_mats,
+        RenderSettings(bounce_min=3, bounce_max=10, has_bssrdf=True, **base),
+        0.0)
+    out["c7_organic_media"] = (
+        "organic", organic_media_mats,
+        RenderSettings(bounce_min=2, bounce_max=10, has_media=True, **base),
+        0.0)
+    return out
 
 
 def main():
@@ -368,6 +612,10 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas %s: %s" % (name, line.strip()))
+    regs = ptxas_registers(libs.logs.get("traverse", ""))
+    report["traverse_registers"] = {
+        "traverse_kernel<anyhit=%d,count=%d,table=%d>" % k: v
+        for k, v in regs.items()}
 
     from tpu_pathtracer_torch.ops import traverse_packet as ops
     from tpu_pathtracer_torch.tracer import traverse as trav
@@ -375,7 +623,7 @@ def main():
     from tpu_pathtracer_torch.scene import demo, procedural
     from tpu_pathtracer_torch.tracer.renderer import Renderer
     from tpu_pathtracer_torch.tools.probe_steps import (
-        camera_rays, incoherent_rays)
+        camera_rays, incoherent_rays, freeze_pool)
 
     # ---- 3. kernel vs plain vs brute force; times at 1M rays ----
     cache = os.path.join(HERE, ".bvh_cache_torch")
@@ -531,6 +779,30 @@ def main():
             del cs, ct, cn, ps, pt, pn, ks, kt
     del big, co, cd
 
+    # ---- 3d. the shared-memory-table instantiations, two streams ----
+    t0 = time.time()
+    big_scenes = {"large": demo.large_scene(cache_dir=cache)}
+    t1 = time.time()
+    big_scenes["organic_sss"] = demo.large_organic_scene(cache_dir=cache,
+                                                         variant="sss")
+    big_scenes["organic_media"] = demo.large_organic_scene(cache_dir=cache,
+                                                           variant="media")
+    report["bvh_big"] = {"large_s": t1 - t0, "organic_s": time.time() - t1}
+    for tag, parts in big_scenes.items():
+        log("%s stream: %d rows, %d nodes, depth %d (%.1f MB at 64 B a row)"
+            % (tag, parts[0].prims.shape[0], parts[0].num_nodes,
+               parts[0].max_depth, parts[0].prims.shape[0] * 64 / 1e6))
+    log("  built / loaded in %.1f s (large) and %.1f s (organic, both "
+        "variants)" % (t1 - t0, time.time() - t1))
+    fb_l = big_scenes["large"][0]
+    packed_l = torch.from_numpy(trav.pack_stream(fb_l.prims,
+                                                 fb_l.meta)).to(dev)
+    check_table(np, torch, ops, trav, fb, packed, "testobj", "smem", g, dev,
+                camera_rays, incoherent_rays)
+    check_table(np, torch, ops, trav, fb_l, packed_l, "large", "split", g,
+                dev, camera_rays, incoherent_rays)
+    del packed_l
+
     # ---- 3c. row gather / scatter kernels at 1M rows ----
     from tpu_pathtracer_torch.ops import dma_rows
     from tpu_pathtracer_torch.tools import probe_dma, probe_steps
@@ -540,9 +812,12 @@ def main():
 
     # ---- 4. goldens on the card ----
     golden = {}
-    for name, (gmats, settings, aperture) in golden_configs().items():
-        r = Renderer(fb, gmats, envmap=envmap, texture=texture, width=96,
-                     height=96, settings=settings, device=dev)
+    streams = {"testobj": fb, "organic": big_scenes["organic_sss"][0]}
+    for name, (stream, gmats, settings, aperture) in golden_configs(
+            big_scenes["organic_sss"][1],
+            big_scenes["organic_media"][1]).items():
+        r = Renderer(streams[stream], gmats, envmap=envmap, texture=texture,
+                     width=96, height=96, settings=settings, device=dev)
         cam = demo.default_camera(96, 96)
         cam.aperture_radius = aperture
         cam.focal_distance = 4.0
@@ -560,37 +835,12 @@ def main():
     r = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
                  height=H, device=dev)
     rc = demo.default_camera(W, H).build_render_camera()
-    r.render_frames(r.zeros_accum(), rc, 1, 1)          # warm-up frame
-    torch.cuda.synchronize()
     spp = 4
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    t_host = time.time()
-    start.record()
-    acc, waves, rays = r.render_frames(r.zeros_accum(), rc, 1, spp,
-                                       with_stats=True)
-    stop.record()
-    torch.cuda.synchronize()
-    t_host = time.time() - t_host
-    launches = dict(ops.LAUNCHES)
-    ms = start.elapsed_time(stop)
-    img = acc.cpu().numpy() / spp
-    assert img.shape == (W * H, 3), img.shape
-    assert np.all(np.isfinite(img)), "main path: non-finite radiance"
-    assert float(img.mean()) > 0.01, "main path: black image"
+    main, _ = timed_frames(np, torch, ops, r, rc, spp, "main path")
+    launches = main["launches"]
     for k in ("traverse_closest", "traverse_anyhit"):
         assert launches[k] > 0, "main path never launched %s" % k
-    main = {"width": W, "height": H, "spp": spp,
-            "pool_lanes": r.settings.pool_lanes,
-            "ms_per_frame": ms / spp, "host_s": t_host, "waves": waves,
-            "traced_rays": rays, "mrays_per_s": rays / (ms / 1e3) / 1e6,
-            "mean_radiance": float(img.mean()), "launches": launches}
     report["main_path"] = main
-    log("main path %dx%d x %d spp: %.1f ms per 1-spp frame, %d waves, "
-        "%.0f rays, %.1f Mrays/s, launches %s"
-        % (W, H, spp, ms / spp, waves, rays, main["mrays_per_s"], launches))
 
     # ---- 5b. the step census on the main path's renderer ----
     for k in ops.LAUNCHES:
@@ -617,7 +867,15 @@ def main():
                 100 * c["bound_share"]))
     report["census"] = {"waves": 3, "spp": spp, "records": census,
                         "launches": census_launches, "s": time.time() - t0}
-    del r
+
+    # ---- 5d. both residencies of the table on the TestObj stream ----
+    residency = {}
+    pool = freeze_pool(r, rc_vec, 3, spp)
+    residency["testobj"] = time_residency(
+        torch, ops, trav, cuda_ms, packed, sd,
+        residency_sets(np, torch, g, fb, pool, dev, camera_rays,
+                       incoherent_rays), "smem", "testobj", regs)
+    del r, pool
 
     # ---- 5c. the row probe ----
     for k in dma_rows.LAUNCHES:
@@ -632,6 +890,60 @@ def main():
         assert v > 0, "row probe never launched %s" % k
     report["probe_dma"] = {"cases": probe, "launches": dma_launches,
                            "s": time.time() - t0}
+    # ---- 7. this slice's paths at full width ----
+    import dataclasses
+    frames = {}
+    census_table_launches = None
+    for tag, (fb_s, mats_s, env_s, tex_s) in big_scenes.items():
+        r = Renderer(fb_s, mats_s, envmap=env_s, texture=tex_s, width=W,
+                     height=H, device=dev)
+        auto_rec, img_a = timed_frames(np, torch, ops, r, rc, 2, tag)
+        default_settings = r.settings
+        r.settings = dataclasses.replace(default_settings,
+                                         packet_table_mem="split")
+        split_rec, img_s = timed_frames(np, torch, ops, r, rc, 2, tag)
+        r.settings = default_settings
+        ratio = float(img_s.mean()) / float(img_a.mean())
+        assert abs(ratio - 1.0) < 1e-3, (tag, "table_mem moved the image",
+                                         ratio)
+        for k in ("traverse_closest", "traverse_anyhit"):
+            assert auto_rec["launches"][k] > 0, (tag, k)
+            assert split_rec["launches"][k + "_table"] > 0, (tag, k)
+            assert split_rec["launches"][k] == 0, (tag, k)
+        if "sss" in tag:
+            assert auto_rec["launches"]["closest_mask_lane_tmax"] > 0, tag
+        frames[tag] = {"auto": auto_rec, "split": split_rec}
+        sd_s = r.settings.stack_depth
+        if tag != "organic_media":       # the organic stream: timed once
+            pool = freeze_pool(r, rc_vec, 3, spp)
+            key = "large" if tag == "large" else "organic"
+            residency[key] = time_residency(
+                torch, ops, trav, cuda_ms, r.scene["packed"], sd_s,
+                residency_sets(np, torch, g, fb_s, pool, dev, camera_rays,
+                               incoherent_rays), "split", key, regs)
+            del pool
+        if tag == "large":
+            # the census under both residencies: the path of the counting
+            # table instantiations
+            for k in ops.LAUNCHES:
+                ops.LAUNCHES[k] = 0
+            census_l = probe_steps.run(r, rc_vec, [3], spp, timed=True,
+                                       table_mems=("vmem", "split"))
+            torch.cuda.synchronize()
+            census_table_launches = dict(ops.LAUNCHES)
+            for rec in census_l:
+                log(probe_steps.report(rec))
+            for k in ("traverse_closest_table_steps",
+                      "traverse_anyhit_table_steps"):
+                assert census_table_launches[k] > 0, \
+                    "the large-scene census never launched %s" % k
+            report["census_large"] = {"records": census_l,
+                                      "launches": census_table_launches}
+        del r
+        torch.cuda.empty_cache()
+    report["frames"] = frames
+    report["residency"] = residency
+
     assert "jax" not in sys.modules, "the port imported jax"
     assert not [m for m in sys.modules if m == "tpu_pathtracer"
                 or m.startswith("tpu_pathtracer.")], \
@@ -658,6 +970,45 @@ def main():
             "ms": min(tm["kernel_ms"]), "plain_ms": min(tm["plain_ms"]),
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": None})
+    # row 3: the closest-hit form with a mask and a per-lane tmax (the
+    # BSSRDF probe trace) shares the closest-hit instantiations; its
+    # launches are those of the sss frames
+    tm = timing["closest_lane_tmax_coherent"]
+    kernels.append({
+        "name": "traverse_closest_mask_lane_tmax", "route": "cuda",
+        "source": src,
+        "replaces": "tpu_pathtracer/ops/traverse_packet.py:998",
+        "launches": frames["organic_sss"]["auto"]["launches"][
+            "closest_mask_lane_tmax"],
+        "max_abs_err": errs["closest_lane_tmax_coherent"],
+        "ms": min(tm["kernel_ms"]), "plain_ms": min(tm["plain_ms"]),
+        "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+        "library_ms": None})
+    # row 6: the shared-memory-table instantiations, timed on the
+    # large_scene stream; launched by the split frames and the census
+    split_launches = frames["large"]["split"]["launches"]
+    rs = residency["large"]["sets"]
+    for name, kset, runs, counted in (
+            ("traverse_closest_table", "coherent_closest", split_launches,
+             False),
+            ("traverse_anyhit_table", "coherent_anyhit", split_launches,
+             False),
+            ("traverse_closest_table_steps", "coherent_closest",
+             census_table_launches, True),
+            ("traverse_anyhit_table_steps", "coherent_anyhit",
+             census_table_launches, True)):
+        row = rs[kset]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": "tpu_pathtracer/ops/traverse_packet.py:101",
+            "launches": runs[name], "max_abs_err": row["max_abs_err"],
+            "ms": row["table_count_ms"] if counted else min(row["table_ms"]),
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["count_bound_ms" if counted else "bound_ms"],
+            "bound_by": row["count_bound_by" if counted else "bound_by"],
+            "library_ms": None})
+    for k in kernels:
+        assert k["launches"] > 0, "%s was launched on no path" % k["name"]
     dma_src = "tpu_pathtracer_torch/csrc/dma_rows.cu"
     for name, case, rep in (
             ("dma_gather", "gather_flat", "tools/probe_dma.py:60"),

@@ -283,18 +283,24 @@ def test_measured_warp_steps_equal_the_pool_order_model(device):
 @pytest.mark.cuda
 def test_refused_launch_is_reported_and_raised(device, monkeypatch):
     """tpt_traverse returns the code of a launch it refuses (here a stack
-    deeper than the kernel's), and the wrapper raises on any nonzero
-    code."""
+    deeper than the kernel's, or a table of more rows than fit), and the
+    wrapper raises on any nonzero code."""
     fb, packed = _testobj()
     o, d, _ = _rays(64, 31)
     packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
     slot = torch.empty(64, dtype=torch.int32, device=device)
     t = torch.empty(64, dtype=torch.float32, device=device)
-    err = ops._lib().tpt_traverse(
-        packed.data_ptr(), o.data_ptr(), d.data_ptr(), RAY_MIN, RAY_MAX,
-        None, 64, None, 64, ops.MAX_STACK_DEPTH + 1, 0, slot.data_ptr(),
-        t.data_ptr(), None, None, torch.cuda.current_stream().cuda_stream)
+    def entry(stack_depth, table_rows):
+        return ops._lib().tpt_traverse(
+            packed.data_ptr(), o.data_ptr(), d.data_ptr(), RAY_MIN, RAY_MAX,
+            None, 64, None, 64, stack_depth, 0, table_rows, slot.data_ptr(),
+            t.data_ptr(), None, None,
+            torch.cuda.current_stream().cuda_stream)
+    err = entry(ops.MAX_STACK_DEPTH + 1, 0)
     assert err != 0
+    assert entry(8, ops.TABLE_MAX_ROWS + 1) != 0
+    assert entry(8, -1) != 0
+    assert entry(fb.max_depth + 2, ops.TABLE_MAX_ROWS) == 0
 
     class Refusing:
         @staticmethod
@@ -328,3 +334,144 @@ def test_bare_launch_equals_the_wrapper_and_counts_nothing(device, count):
         for x, y in zip(got, want):
             assert torch.equal(x, y)
     assert ops.LAUNCHES == before
+
+
+@functools.lru_cache(maxsize=1)
+def _large():
+    """A ~17k-row stream (over the JAX package's SMEM budget: `split`)."""
+    fb = demo.large_scene(cache_dir=None, n_lat=40, n_lon=80,
+                          ground_div=12)[0]
+    return fb, trav.pack_stream(fb.prims, fb.meta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream,table_mem", [("testobj", "smem"),
+                                              ("testobj", "split"),
+                                              ("large", "split")])
+@pytest.mark.parametrize("form", ["prefix", "mask_lane_tmax", "anyhit"])
+def test_table_kernel_matches_plain_and_ldg_exact(device, form, stream,
+                                                  table_mem):
+    """The shared-memory-table instantiations: slot, t, steps and the
+    measured warp-steps equal the plain version's and the __ldg kernel's on
+    every lane, with and without the count."""
+    fb, packed = _testobj() if stream == "testobj" else _large()
+    o, d, g = _rays(N, 31)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    kw, mask, tmax, tmax_arg = _form(form, device, g)
+    sd = fb.max_depth + 2
+    assert ops.table_plan(packed.shape[0], N, table_mem)[0] == ops.TABLE_ROWS
+    before = dict(ops.LAUNCHES)
+    tab = ops.packet_intersect(packed, o, d, RAY_MIN, tmax_arg,
+                               stack_depth=sd, count_steps=True,
+                               table_mem=table_mem, **kw)
+    w_tab = int(ops.last_warp_steps())
+    tab2 = ops.packet_intersect(packed, o, d, RAY_MIN, tmax_arg,
+                                stack_depth=sd, table_mem=table_mem, **kw)
+    kind = "anyhit" if form == "anyhit" else "closest"
+    assert ops.LAUNCHES["traverse_%s_table_steps" % kind] == \
+        before["traverse_%s_table_steps" % kind] + 1
+    assert ops.LAUNCHES["traverse_%s_table" % kind] == \
+        before["traverse_%s_table" % kind] + 1
+    ldg = ops.packet_intersect(packed, o, d, RAY_MIN, tmax_arg,
+                               stack_depth=sd, count_steps=True,
+                               table_mem="vmem", **kw)
+    w_ldg = int(ops.last_warp_steps())
+    plain = trav.intersect_scene(None, None, None, o, d, RAY_MIN, tmax_arg,
+                                 anyhit=form == "anyhit", stack_depth=sd,
+                                 active=mask, packed=packed,
+                                 count_steps=True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(tab, ldg, plain):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(tab2[0], tab[0]) and torch.equal(tab2[1], tab[1])
+    assert w_tab == w_ldg > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 397, 4096])
+@pytest.mark.parametrize("rows", [1, 8, None, 288])
+def test_table_kernel_small_launches_and_table_sizes(device, n, rows):
+    """Every lane count around a warp and a block, and every table size
+    from one row to all that fit, gives the __ldg kernel's bits."""
+    fb, packed = _large()
+    o, d, _ = _rays(n, 32)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    sd = fb.max_depth + 2
+    want = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX,
+                                stack_depth=sd, count_steps=True,
+                                table_mem="vmem")
+    got = ops.launch_fn(packed, o, d, RAY_MIN, RAY_MAX, stack_depth=sd,
+                        count_steps=True, table_mem="split",
+                        table_rows=rows)()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_table_kernel_short_stream_and_refused_rows(device):
+    """A stream shorter than the plan's table is resident as a whole; more
+    rows than fit, or any rows where the plan has no table, raise."""
+    packed = _small_stream()
+    K = packed.shape[0]
+    assert K < ops.TABLE_ROWS
+    o, d, _ = _rays(4096, 33)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    assert ops.table_plan(K, 4096, "smem") == (K, ops.BLOCK, K * 64)
+    a = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX, stack_depth=8,
+                             count_steps=True, table_mem="smem")
+    b = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX, stack_depth=8,
+                             count_steps=True, table_mem="vmem")
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="table_rows"):
+        ops.launch_fn(packed, o, d, RAY_MIN, RAY_MAX, stack_depth=8,
+                      table_mem="smem", table_rows=K + 1)
+    with pytest.raises(ValueError, match="table_rows"):
+        ops.launch_fn(packed, o, d, RAY_MIN, RAY_MAX, stack_depth=8,
+                      table_mem="vmem", table_rows=4)
+
+
+def _small_stream():
+    """A 12-triangle box: a stream of a few dozen rows."""
+    from tpu_pathtracer_torch.scene import procedural
+    from tpu_pathtracer_torch.accel import flatten_mesh_bvh
+    fb = flatten_mesh_bvh(procedural.make_box((0.0, 1.0, 0.0), 1.5, 0))
+    return trav.pack_stream(fb.prims, fb.meta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["media", "subsurface"])
+def test_media_and_bssrdf_render_on_card(device, variant):
+    """The media, BSSRDF and distant-light branches of the wave on the
+    card: the image equals the CPU render of the same samples under the
+    gate statistics (median |diff| < 1e-4, mean within 1%, RMSE < 0.1),
+    with the table resident too, and the BSSRDF probes launch the mask +
+    per-lane-tmax form."""
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.tracer.wavefront import RenderSettings
+    fb, mats, envmap, texture = demo.testobj_scene(cache_dir=None,
+                                                   variant=variant)
+    W = 48
+    rc = demo.default_camera(W, W).build_render_camera()
+    imgs = {}
+    for dev, tm in (("cpu", "auto"), (device, "auto"), (device, "smem")):
+        s = RenderSettings(has_media=variant == "media",
+                           has_bssrdf=variant == "subsurface",
+                           use_distant_light=True, packet_table_mem=tm)
+        r = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                     height=W, settings=s, device=dev)
+        before = dict(ops.FORM_LAUNCHES)
+        acc = r.render_frames(r.zeros_accum(), rc, 1, 4)
+        imgs[(str(dev), tm)] = r.accum_to_buffer(acc / 4)
+        probes = ops.FORM_LAUNCHES["closest_mask_lane_tmax"] \
+            - before["closest_mask_lane_tmax"]
+        assert (probes > 0) == (variant == "subsurface" and dev != "cpu")
+    want = imgs[("cpu", "auto")]
+    for key, img in imgs.items():
+        dabs = np.abs(img - want)
+        assert np.all(np.isfinite(img)), key
+        assert float(np.median(dabs)) < 1e-4, key
+        assert abs(img.mean() / want.mean() - 1.0) < 0.01, key
+        assert float(np.sqrt((dabs ** 2).mean())) < 0.1, key

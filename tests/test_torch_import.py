@@ -32,7 +32,9 @@ def test_port_has_the_slice_modules():
               "ops.traverse_packet", "ops.dma_rows", "ops.checks",
               "accel", "accel.bvh", "accel.flatten", "accel.cache",
               "accel.native_build", "tools.probe_steps", "tools.probe_dma",
-              "utils.cuda_build", "convert"):
+              "utils.cuda_build", "convert", "scene.plyloader", "bssrdf",
+              "bssrdf.tabulate", "bssrdf.sample", "media", "tracer.medium",
+              "tracer.bssrdf_shade"):
         assert "tpu_pathtracer_torch." + m in mods, m
 
 

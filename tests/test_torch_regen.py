@@ -129,9 +129,86 @@ def test_wavefront_traversal_setting_gives_the_same_image():
     (dict(scatter_mode="rings"), ValueError),
     (dict(regen_order="inplace"), NotImplementedError),
     (dict(regen_permute="sort"), NotImplementedError),
-    (dict(use_distant_light=True), NotImplementedError),
     (dict(dup_stage="shade"), NotImplementedError),
 ])
 def test_regen_settings_raise(kw, exc):
     with pytest.raises(exc):
         make_regen_integrator(RenderSettings(**kw), 8, 8)
+
+
+def _shadow_scene():
+    from tpu_pathtracer_torch.scene import procedural
+    from tpu_pathtracer_torch.scene.mesh import TriangleMesh
+    from tpu_pathtracer_torch.accel import flatten_mesh_bvh
+    plane = procedural.make_plane((0, 0, 0), 20, 20, 0)
+    sphere = procedural.make_uv_sphere((0, 1.2, 0), 0.8, 1, n_lat=12,
+                                       n_lon=16)
+    return flatten_mesh_bvh(TriangleMesh.concatenate([plane, sphere]))
+
+
+def test_distant_light_matches_jax_and_casts_a_shadow():
+    """tests/test_features.py:29 in the port: the distant light lights the
+    plane, the sphere shadows it, and the image is the JAX package's under
+    the gate statistics."""
+    W = 48
+    fb = _shadow_scene()
+    mats = [MatDesc(refltype=MAT_DIFF, objcol=(0.8, 0.8, 0.8)),
+            MatDesc(refltype=MAT_DIFF, objcol=(0.2, 0.2, 0.2))]
+    kw = dict(bounce_min=2, bounce_max=4, use_envmap=False,
+              use_texture=False, use_distant_light=True,
+              distant_light_dir=(1.0, 1.0, 0.0),
+              distant_light_L=(2.0, 2.0, 2.0))
+    rc = tdemo.default_camera(W, W, pitch=1.5, radius=8,
+                              center=(0, 0, 0)).build_render_camera()
+    from tpu_pathtracer.tracer.wavefront import RenderSettings as JSettings
+    jr = JRenderer(fb, mats, width=W, height=W, settings=JSettings(**kw))
+    tr = Renderer(fb, mats, width=W, height=W, settings=RenderSettings(**kw),
+                  device="cpu")
+    spp = 8
+    jbuf = jr.accum_to_buffer(np.asarray(
+        jr.render_frames(jr.zeros_accum(), rc, 1, spp)) / spp)
+    tacc, _, trays = tr.render_frames(tr.zeros_accum(), rc, 1, spp,
+                                      with_stats=True)
+    tbuf = tr.accum_to_buffer(tacc.numpy() / spp)
+    _gate(tbuf, jbuf)
+    lit = tbuf[6:10, W - 10:W - 6].mean()
+    shadow = tbuf[W // 2 - 2:W // 2 + 2, W // 2 - 9:W // 2 - 6].mean()
+    assert lit > 0.05 and lit > shadow * 1.5
+    assert trays > W * W * spp            # the light's shadow rays count
+
+
+def test_bssrdf_exit_distant_light_matches_jax():
+    """tests/test_features.py:101 in the port: with a black environment the
+    distant light reaches the subsurface sphere only through the NEE at the
+    BSSRDF exit points."""
+    from tpu_pathtracer_torch.scene import procedural
+    from tpu_pathtracer_torch.scene.mesh import TriangleMesh
+    from tpu_pathtracer_torch.scene.config import MAT_SUBSURFACE
+    from tpu_pathtracer_torch.accel import flatten_mesh_bvh
+    from tpu_pathtracer.tracer.wavefront import RenderSettings as JSettings
+    W = 32
+    sphere = procedural.make_uv_sphere((0, 0.0, 0), 1.0, 1, n_lat=10,
+                                       n_lon=14)
+    plane = procedural.make_plane((0, -1.0, 0), 20, 20, 0)
+    fb = flatten_mesh_bvh(TriangleMesh.concatenate([plane, sphere]))
+    mats = [MatDesc(refltype=MAT_DIFF, objcol=(0.6, 0.6, 0.6)),
+            MatDesc(refltype=MAT_SUBSURFACE, objcol=(0.8, 0.75, 0.7),
+                    alphax=0.3, etaT=1.4, mfp=(0.3, 0.25, 0.2), ks=0.2)]
+    kw = dict(bounce_min=3, bounce_max=8, use_envmap=False,
+              use_texture=False, has_bssrdf=True, use_distant_light=True,
+              distant_light_dir=(0.3, 1.0, 0.4),
+              distant_light_L=(3.0, 3.0, 3.0))
+    rc = tdemo.default_camera(W, W, pitch=0.3, radius=3.5,
+                              center=(0, 0, 0)).build_render_camera()
+    jr = JRenderer(fb, mats, width=W, height=W, settings=JSettings(**kw),
+                   env_const=(0.0, 0.0, 0.0))
+    tr = Renderer(fb, mats, width=W, height=W, settings=RenderSettings(**kw),
+                  env_const=(0.0, 0.0, 0.0), device="cpu")
+    spp = 8
+    jbuf = jr.accum_to_buffer(np.asarray(
+        jr.render_frames(jr.zeros_accum(), rc, 1, spp)) / spp)
+    tbuf = tr.accum_to_buffer(
+        tr.render_frames(tr.zeros_accum(), rc, 1, spp).numpy() / spp)
+    _gate(tbuf, jbuf)
+    c = slice(W // 2 - 4, W // 2 + 4)
+    assert tbuf[c, c].mean() > 0.005

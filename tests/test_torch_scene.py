@@ -130,13 +130,53 @@ def test_scene_dict_bit_exact_and_scene_from_jax():
     assert tr.settings.stack_depth == jr.settings.stack_depth
 
 
-@pytest.mark.parametrize("what", ["bounce", "media", "subsurface"])
+@pytest.mark.parametrize("what", ["bounce"])
 def test_renderer_raises_for_unported_features(what):
-    fb, mats, envmap, texture = _scene(
-        "default" if what == "bounce" else what)
-    settings = RenderSettings(integrator="bounce") if what == "bounce" \
-        else None
+    fb, mats, envmap, texture = _scene("default")
     with pytest.raises(NotImplementedError):
         trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
-                           width=8, height=8, settings=settings,
+                           width=8, height=8,
+                           settings=RenderSettings(integrator="bounce"),
                            device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["media", "subsurface"])
+def test_media_and_subsurface_scene_dicts_bit_exact(variant):
+    """The Renderer takes media and BSSRDF scenes: the same scene dict as
+    the JAX package (with the bssrdf_* tables where it has them), the same
+    derived default settings, and scene_from_jax carries every key."""
+    fb, mats, envmap, texture = _scene(variant)
+    jr = jrenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
+                            width=24, height=16)
+    tr = trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
+                            width=24, height=16, device="cpu")
+    assert dataclasses.asdict(tr.settings) == dataclasses.asdict(jr.settings)
+    assert tr.settings.has_media == (variant == "media")
+    assert tr.settings.has_bssrdf == (variant == "subsurface")
+    assert (tr.settings.packet_tile_sub,
+            tr.settings.packet_interleave) == (32, 4)
+    assert set(tr.scene) == set(jr.scene)
+    assert ("bssrdf_profile" in tr.scene) == (variant == "subsurface")
+    conv = scene_from_jax({k: v if isinstance(v, int) else np.asarray(v)
+                           for k, v in jr.scene.items()}, "cpu")
+    for k, v in jr.scene.items():
+        if isinstance(v, int):
+            assert tr.scene[k] == v and conv[k] == v, k
+            continue
+        assert _bits(tr.scene[k].numpy()) == _bits(v), k
+        assert _bits(conv[k].numpy()) == _bits(v), k
+
+
+def test_default_settings_for_a_stream_over_the_smem_budget():
+    """Streams over the JAX package's SMEM table budget derive the (16, 4)
+    packet shape in both packages (it changes no result in the port)."""
+    fb, mats, envmap, texture = tdemo.large_scene(
+        cache_dir=CACHE, n_lat=40, n_lon=80, ground_div=12)
+    assert fb.prims.shape[0] * 14 * 4 > 700_000
+    jr = jrenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
+                            width=8, height=8)
+    tr = trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
+                            width=8, height=8, device="cpu")
+    assert dataclasses.asdict(tr.settings) == dataclasses.asdict(jr.settings)
+    assert (tr.settings.packet_tile_sub,
+            tr.settings.packet_interleave) == (16, 4)

@@ -9,8 +9,16 @@ launch the kernel raises.
 
 The signature and the argument checks are the JAX function's. Arguments
 that only choose a TPU schedule (tile_sub, interleave, queue_k, step_mode,
-step_unroll, table_mem, anyhit_early_stop, interpret) are checked as
-there and then change nothing: every schedule returns the same result.
+step_unroll, anyhit_early_stop, interpret) are checked as there and then
+change nothing: every schedule returns the same result.
+
+`table_mem` chooses where the kernel reads the stream's rows from, as it
+does on the TPU (`table_plan` holds the choice): "smem" and "split" launch
+the instantiations that keep the first S rows (the BFS top of the tree) in
+shared memory, "vmem" and "vmem_packed" the ones that read every row
+through `__ldg`, "auto" whichever the measurements favour. Residency does
+not show in the result: slot, t and steps are the same bits either way, and
+on CPU tensors `table_mem` changes nothing.
 
 `count_steps=True` adds the step census, steps [N] i32, as a third output
 on both devices (the JAX function's return, `traverse_packet.py:1005`).
@@ -35,11 +43,30 @@ from .checks import require
 
 _SMEM_TABLE_BUDGET_BYTES = 700_000
 MAX_STACK_DEPTH = 64          # kMaxStack in csrc/traverse.cu
+BLOCK = 128                   # kBlock
+TABLE_MAX_ROWS = 288          # kTableMaxRows: 12 blocks x 18 KB an SM
+# Rows the plan keeps in shared memory: the top 7 levels of the tree. On an
+# H100 every table size was slower than none and smaller tables less so
+# (1M camera rays on the 177,100-row stream: +11% with 8 rows, +14% with
+# 128, +28% with 288; PERF.md, row 6 of the table of TPU kernels), so the
+# plan stays well under what fits.
+TABLE_ROWS = 128
+ROW_BYTES = 64
 
 # Launches of each kernel instantiation, counted where the wrapper launches
-# it and nowhere else; set back to 0 by whoever reads them.
+# it and nowhere else; set back to 0 by whoever reads them. The `_table`
+# names are the instantiations with the stream's first rows in shared
+# memory.
 LAUNCHES = {"traverse_closest": 0, "traverse_anyhit": 0,
-            "traverse_closest_steps": 0, "traverse_anyhit_steps": 0}
+            "traverse_closest_steps": 0, "traverse_anyhit_steps": 0,
+            "traverse_closest_table": 0, "traverse_anyhit_table": 0,
+            "traverse_closest_table_steps": 0,
+            "traverse_anyhit_table_steps": 0}
+
+# Launches, among those above, of the closest-hit form with a mask and a
+# per-lane tmax (the BSSRDF probe trace); it shares its instantiations with
+# the other closest-hit forms.
+FORM_LAUNCHES = {"closest_mask_lane_tmax": 0}
 
 # The warp-step counter of the last counting launch on the card (a 0-d
 # int64 tensor on the device), or None.
@@ -58,6 +85,27 @@ def table_fits_smem(n_rows):
     """True when a packed stream of n_rows 14-col f32 rows fits the TPU
     kernel's SMEM table budget (kept for the table_mem checks)."""
     return n_rows * 14 * 4 <= _SMEM_TABLE_BUDGET_BYTES
+
+
+def table_plan(K, N, table_mem):
+    """Where a launch of N lanes on a K-row stream reads its rows from:
+    (S, block, smem_bytes). S > 0: the first S rows lie in each block's
+    shared memory (the kTable instantiations); S = 0: every row comes
+    through `__ldg`. Both run BLOCK threads a block, one ray a thread.
+
+    "smem" and "split" ask for the table: S = min(K, TABLE_ROWS), at any N
+    (a block copies its rows whatever share of its lanes is active).
+    "vmem" and "vmem_packed" ask for `__ldg`. "auto" takes `__ldg`: on an
+    H100 the kTable instantiations were slower on every stream, ray set and
+    table size measured (PERF.md, row 6 of the table of TPU kernels).
+    N = 0 launches nothing and plans no table."""
+    if table_mem not in ("auto", "smem", "vmem", "split", "vmem_packed"):
+        raise ValueError("unknown table_mem %r (want auto/smem/vmem/"
+                         "split/vmem_packed)" % (table_mem,))
+    if table_mem in ("smem", "split") and N > 0 and K > 0:
+        S = min(int(K), TABLE_ROWS)
+        return S, BLOCK, S * ROW_BYTES
+    return 0, BLOCK, 0
 
 
 def _is_scalar(x):
@@ -125,7 +173,8 @@ def packet_intersect(packed, orig, raydir, tmin, tmax, anyhit=False,
         raise ValueError("packet_intersect: unsupported device %s"
                          % orig.device)
     return _launch(packed, orig, raydir, float(tmin), tmax, anyhit,
-                   stack_depth, active, active_prefix, count_steps)
+                   stack_depth, active, active_prefix, count_steps,
+                   table_mem)
 
 
 def _lib():
@@ -133,17 +182,17 @@ def _lib():
     lib = load("traverse")
     if lib.tpt_traverse.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tpt_traverse.argtypes = [p, p, p, f, f, p, i, p, i, i, i, p, p,
-                                     p, p, p]
+        lib.tpt_traverse.argtypes = [p, p, p, f, f, p, i, p, i, i, i, i, p,
+                                     p, p, p, p]
         lib.tpt_traverse.restype = i
     return lib
 
 
 def _prepare(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
-             active_prefix, count_steps):
+             active_prefix, count_steps, table_mem, table_rows=None):
     """Check the CUDA arguments and allocate the outputs. Returns (outputs,
     warp-step counter or None, tpt_traverse's arguments or None when N is
-    0)."""
+    0, the name of the instantiation in LAUNCHES)."""
     device = orig.device
     N = orig.shape[0]
     K = packed.shape[0]
@@ -171,8 +220,17 @@ def _prepare(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
     steps = torch.empty((N,), dtype=torch.int32, device=device) \
         if count_steps else None
     out = (slot, t, steps) if count_steps else (slot, t)
+    planned = table_plan(K, N, table_mem)[0]
+    most = min(K, TABLE_MAX_ROWS) if planned else 0
+    if table_rows is None:
+        table_rows = planned
+    elif not 0 <= table_rows <= most:
+        raise ValueError("table_rows must be in [0, %d] for table_mem=%r, "
+                         "got %d" % (most, table_mem, table_rows))
+    name = ("traverse_anyhit" if anyhit else "traverse_closest") \
+        + ("_table" if table_rows else "") + ("_steps" if count_steps else "")
     if N == 0:
-        return out, None, None
+        return out, None, None, name
     warp_steps = torch.empty((), dtype=torch.int64, device=device) \
         if count_steps else None
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -180,19 +238,19 @@ def _prepare(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
             tmin, tmax_scalar,
             tmax_lane.data_ptr() if tmax_lane is not None else None,
             n_prefix, active.data_ptr() if active is not None else None,
-            N, int(stack_depth), int(bool(anyhit)),
+            N, int(stack_depth), int(bool(anyhit)), table_rows,
             slot.data_ptr(), t.data_ptr(),
             steps.data_ptr() if count_steps else None,
             warp_steps.data_ptr() if count_steps else None, stream)
-    return out, warp_steps, args
+    return out, warp_steps, args, name
 
 
 def _launch(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
-            active_prefix, count_steps):
+            active_prefix, count_steps, table_mem):
     global _last_warp_steps
-    out, warp_steps, args = _prepare(packed, orig, raydir, tmin, tmax,
-                                     anyhit, stack_depth, active,
-                                     active_prefix, count_steps)
+    out, warp_steps, args, name = _prepare(
+        packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
+        active_prefix, count_steps, table_mem)
     if args is None:
         return out
     with torch.cuda.device(orig.device):
@@ -200,8 +258,9 @@ def _launch(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
     if err != 0:
         raise RuntimeError("traverse kernel launch failed: CUDA error %d"
                            % err)
-    name = "traverse_anyhit" if anyhit else "traverse_closest"
-    LAUNCHES[name + "_steps" if count_steps else name] += 1
+    LAUNCHES[name] += 1
+    if not anyhit and active is not None and not _is_scalar(tmax):
+        FORM_LAUNCHES["closest_mask_lane_tmax"] += 1
     if count_steps:
         _last_warp_steps = warp_steps
     return out
@@ -209,23 +268,27 @@ def _launch(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
 
 def launch_fn(packed, orig, raydir, tmin, tmax, anyhit=False,
               stack_depth=64, active=None, active_prefix=None,
-              count_steps=False):
+              count_steps=False, table_mem="auto", table_rows=None):
     """The bare launch, for timing the kernel alone: checks the arguments
     (CUDA tensors on the current device) and allocates the outputs once,
-    then returns a function of no arguments that launches the kernel into
-    them through tpt_traverse and returns them, raising on a nonzero code.
-    The wrapper's host work stays out of its time, and its launches are
-    not counted in LAUNCHES."""
-    _check_args(packed.shape[0], tmin, tmax, active, active_prefix, "auto",
-                "fused", 0, 4, 1, stack_depth)
+    then returns a function of no arguments that launches the kernel
+    `table_mem` chooses into them through tpt_traverse and returns them,
+    raising on a nonzero code. The wrapper's host work stays out of its
+    time, and its launches are not counted in LAUNCHES. `table_rows`, for
+    probing, keeps another number of rows in shared memory than
+    `table_plan` gives: 0 (the `__ldg` kernel) up to min(K, TABLE_MAX_ROWS)
+    where the plan has a table, only 0 where it has none."""
+    _check_args(packed.shape[0], tmin, tmax, active, active_prefix,
+                table_mem, "fused", 0, 4, 1, stack_depth)
     if orig.device.type != "cuda" or \
             orig.device.index != torch.cuda.current_device():
         raise ValueError("launch_fn: orig must lie on the current CUDA "
                          "device, not %s" % orig.device)
     if active_prefix is not None:
         active_prefix = int(active_prefix)
-    out, _, args = _prepare(packed, orig, raydir, float(tmin), tmax, anyhit,
-                            stack_depth, active, active_prefix, count_steps)
+    out, _, args, _ = _prepare(packed, orig, raydir, float(tmin), tmax,
+                               anyhit, stack_depth, active, active_prefix,
+                               count_steps, table_mem, table_rows)
     fn = _lib().tpt_traverse
 
     def launch():

@@ -2,9 +2,14 @@
 
     python -m tpu_pathtracer_torch.tools.probe_steps [--device cuda]
         [--size 1024] [--waves 1,3] [--spp 4]
+        [--scene testobj|large|organic_sss|organic_media]
+        [--table-mem auto|smem|split|vmem|vmem_packed[,...]]
 
-For each k in --waves it freezes the regen pool of the default TestObj
-scene after k waves (`make_regen_integrator(stop_after_waves=k)`), traces
+For each k in --waves it freezes the regen pool of the chosen scene (the
+default TestObj scene, the ~135k-triangle large scene, or the
+~105k-triangle organic blob with its subsurface or its jade-medium
+material; the first run builds the big scenes' SBVH into the cache) after
+k waves (`make_regen_integrator(stop_after_waves=k)`), traces
 the pool's rays once with `count_steps=True` under the mask `active`, in
 closest hit (the extension trace) and in any hit (the form of the NEE
 shadow trace, on the same rays), and prints steps per ray: mean, p50, p95
@@ -18,7 +23,10 @@ grouped in 32s) says what any reordering of the pool could save at most.
 On the card the counting kernel also measures what its warps paid (each
 warp adds its passes on the card: `ops.traverse_packet.last_warp_steps`),
 printed beside the model; both traces (without the count) are timed with
-CUDA events and divided by the measured warp-steps.
+CUDA events and divided by the measured warp-steps. --table-mem names one
+or more residencies of the traversal table (`ops.traverse_packet.
+table_plan`); with several, every count must be the same under each, and
+the traces are timed in turns (a, b, b, a).
 
 camera_rays and incoherent_rays make the 1M-ray sets that chip_smoke.py
 times the kernel on.
@@ -65,11 +73,28 @@ def census(steps, active):
     }
 
 
-def testobj_renderer(size, device, cache_dir=None):
-    """The default TestObj scene with default settings at size^2."""
-    from ..scene.demo import testobj_scene, default_camera
+SCENES = ("testobj", "large", "organic_sss", "organic_media")
+
+
+def scene_parts(scene, cache_dir=None, **size):
+    """(flat_bvh, materials, envmap, texture) of one of SCENES; `size`
+    (n_lat, n_lon, ground_div) shrinks the big scenes."""
+    from ..scene import demo
+    if scene == "testobj":
+        return demo.testobj_scene(cache_dir=cache_dir)
+    if scene == "large":
+        return demo.large_scene(cache_dir=cache_dir, **size)
+    if scene in ("organic_sss", "organic_media"):
+        return demo.large_organic_scene(
+            cache_dir=cache_dir, variant=scene.split("_")[1], **size)
+    raise ValueError("unknown scene %r (want one of %s)" % (scene, SCENES))
+
+
+def scene_renderer(scene, size, device, cache_dir=None, **scene_size):
+    """One of SCENES with default settings at size^2: (renderer, cam_vec)."""
+    from ..scene.demo import default_camera
     from ..tracer.renderer import Renderer
-    fb, mats, envmap, texture = testobj_scene(cache_dir=cache_dir)
+    fb, mats, envmap, texture = scene_parts(scene, cache_dir, **scene_size)
     r = Renderer(fb, mats, envmap=envmap, texture=texture, width=size,
                  height=size, device=device)
     cam = default_camera(size, size).build_render_camera()
@@ -108,21 +133,26 @@ def freeze_pool(renderer, cam_vec, waves, spp):
     return fn(renderer.scene, cam_vec, 1, 0, renderer.zeros_accum(), spp)
 
 
-def trace_pool(renderer, pool, anyhit=False, count_steps=False):
+def trace_pool(renderer, pool, anyhit=False, count_steps=False,
+               table_mem="auto"):
     """Trace the pool's rays under its active mask."""
     from ..core.vecmath import RAY_MIN, RAY_MAX
     from ..ops.traverse_packet import packet_intersect
     return packet_intersect(
         renderer.scene["packed"], pool["orig"], pool["dir"], RAY_MIN,
         RAY_MAX, anyhit=anyhit, stack_depth=renderer.settings.stack_depth,
-        active=pool["active"], count_steps=count_steps)
+        active=pool["active"], count_steps=count_steps, table_mem=table_mem)
 
 
-def run(renderer, cam_vec, waves_list, spp, timed):
+def run(renderer, cam_vec, waves_list, spp, timed, table_mems=("auto",)):
     """Census for each k in waves_list; returns a list of dicts. On the
     card each kind also gets measured_paid / measured_tax (the warp-steps
     the counting kernel paid) and, with timed, trace_ms and
-    ns_per_warp_step; on the CPU they are None (not measured)."""
+    ns_per_warp_step; on the CPU they are None (not measured). The counts
+    are taken under every residency in table_mems and must be equal
+    (slot, t, steps, and on the card the warp-steps); the numbers above
+    are those of table_mems[0], and `by_table_mem` holds each residency's
+    trace times, taken in turns: the list, then the list reversed."""
     from ..ops.traverse_packet import last_warp_steps
     on_card = renderer.device.type == "cuda"
     out = []
@@ -130,20 +160,36 @@ def run(renderer, cam_vec, waves_list, spp, timed):
         pool = freeze_pool(renderer, cam_vec, k, spp)
         rec = {"after_waves": pool["waves"], "alive": pool["alive"]}
         for kind, anyhit in (("closest", False), ("anyhit", True)):
-            steps = trace_pool(renderer, pool, anyhit, count_steps=True)[2]
-            c = census(steps, pool["active"])
-            c["measured_paid"] = c["measured_tax"] = None
+            first = paid = None
+            for tm in table_mems:
+                got = trace_pool(renderer, pool, anyhit, count_steps=True,
+                                 table_mem=tm)
+                tm_paid = WARP * int(last_warp_steps()) if on_card else None
+                if first is None:
+                    first, paid = got, tm_paid
+                elif not all(torch.equal(x, y) for x, y in zip(first, got)) \
+                        or tm_paid != paid:
+                    raise AssertionError(
+                        "table_mem=%r changed the %s trace of the pool"
+                        % (tm, kind))
+            c = census(first[2], pool["active"])
+            c["measured_paid"] = paid
+            c["measured_tax"] = None if paid is None \
+                else paid / max(c["steps_sum"], 1) - 1.0
             c["trace_ms"] = c["ns_per_warp_step"] = None
-            if on_card:
-                c["measured_paid"] = WARP * int(last_warp_steps())
-                c["measured_tax"] = \
-                    c["measured_paid"] / max(c["steps_sum"], 1) - 1.0
+            c["by_table_mem"] = {tm: [] for tm in table_mems}
             if timed and on_card:
                 from ..utils.timing import cuda_ms
-                c["trace_ms"] = cuda_ms(
-                    lambda: trace_pool(renderer, pool, anyhit), 20)
+                turns = list(table_mems)
+                if len(turns) > 1:
+                    turns += turns[::-1]
+                for tm in turns:
+                    c["by_table_mem"][tm].append(cuda_ms(
+                        lambda: trace_pool(renderer, pool, anyhit,
+                                           table_mem=tm), 20))
+                c["trace_ms"] = min(c["by_table_mem"][table_mems[0]])
                 c["ns_per_warp_step"] = c["trace_ms"] * 1e6 * WARP \
-                    / max(c["measured_paid"], 1)
+                    / max(paid, 1)
             rec[kind] = c
         out.append(rec)
         del pool
@@ -173,6 +219,9 @@ def report(rec):
         else:
             lines.append("    trace %.4f ms -> %.3f ns per warp-step"
                          % (c["trace_ms"], c["ns_per_warp_step"]))
+            for tm, ms in c["by_table_mem"].items():
+                lines.append("    table_mem=%-11s trace %s ms" % (
+                    tm, "/".join("%.4f" % t for t in ms)))
     return "\n".join(lines)
 
 
@@ -183,6 +232,13 @@ def main(argv=None):
                     help="image side (default 1024 on cuda, 64 on cpu)")
     ap.add_argument("--waves", default="1,3")
     ap.add_argument("--spp", type=int, default=4)
+    ap.add_argument("--scene", default="testobj", choices=SCENES)
+    ap.add_argument("--table-mem", default="auto",
+                    help="one or more of auto/smem/split/vmem/vmem_packed, "
+                    "comma-separated (smem only where the stream fits the "
+                    "JAX package's SMEM budget)")
+    ap.add_argument("--cache-dir", default=".bvh_cache_torch",
+                    help="BVH cache directory ('' builds in memory)")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("probe_steps: --device cuda needs a CUDA device "
@@ -190,13 +246,19 @@ def main(argv=None):
         return 1
     size = args.size or (1024 if args.device == "cuda" else 64)
     waves = [int(w) for w in args.waves.split(",")]
-    renderer, cam_vec = testobj_renderer(size, args.device)
+    table_mems = tuple(args.table_mem.split(","))
+    # the big scenes are cut down on the CPU: full size is for the card
+    small = {} if args.device == "cuda" or args.scene == "testobj" \
+        else {"n_lat": 24, "n_lon": 48}
+    renderer, cam_vec = scene_renderer(args.scene, size, args.device,
+                                       args.cache_dir or None, **small)
     recs = run(renderer, cam_vec, waves, args.spp,
-               timed=args.device == "cuda")
+               timed=args.device == "cuda", table_mems=table_mems)
     for rec in recs:
         print(report(rec), flush=True)
     dev = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
-    print(json.dumps({"device": dev, "size": size, "spp": args.spp,
+    print(json.dumps({"device": dev, "scene": args.scene, "size": size,
+                      "spp": args.spp, "table_mems": table_mems,
                       "census": recs}))
     return 0
 

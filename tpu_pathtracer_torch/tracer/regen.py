@@ -31,8 +31,15 @@ measurement that calls for it.
 ends the loop after k waves, or earlier when the frame is done, and
 returns the pool instead of the image (see `make_regen_integrator`).
 
+Media (`has_media`: the per-lane `medium_id` column, distance sampling
+before shading), BSSRDF (`has_bssrdf`: the probe loop of
+tracer/bssrdf_shade.py on the lanes that refracted into a subsurface
+material) and the distant light (`use_distant_light`: one more any-hit
+shadow trace a wave, also from BSSRDF exit points) run in the same wave
+body, as in the JAX package.
+
 Not ported yet (each raises): regen_order="inplace", regen_permute="sort",
-media, BSSRDF, the distant light, the dup_stage profiling hook.
+the dup_stage profiling hook.
 """
 from __future__ import annotations
 
@@ -41,7 +48,10 @@ import torch
 from ..core.vecmath import RAY_MIN, RAY_MAX, INV_PI, dot, normalize
 from ..core.rng import RaySampler, wang_hash, MASK32
 from ..scene.config import MAT_DIFF
+from ..materials.fresnel import fresnel_dielectric, fresnel_moment_1
 from .envsample import sample_env, power_heuristic
+from .medium import medium_interaction
+from .bssrdf_shade import bssrdf_scatter
 from .wavefront import (
     RenderSettings, trace_rays, fetch_attributes, gather_material,
     env_miss_weighted, env_tex_merged, texture_radiance, shade,
@@ -68,9 +78,6 @@ def _check_settings(settings: RenderSettings):
          "regen_order=%r (ROADMAP A9a)" % (settings.regen_order,)),
         (settings.regen_permute == "sort",
          "regen_permute='sort' (ROADMAP A9a)"),
-        (settings.has_media, "participating media (ROADMAP A11)"),
-        (settings.has_bssrdf, "BSSRDF (ROADMAP A12)"),
-        (settings.use_distant_light, "the distant light (ROADMAP A13)"),
         (settings.dup_stage != "", "dup_stage profiling"),
     ]
     for missing, what in todo:
@@ -91,9 +98,10 @@ def make_regen_integrator(settings: RenderSettings, width, height,
     stands after the last wave's compaction and dead-row flush, a dict
     with the JAX key names: orig, dir, mask, L [P,3] f32; bsdf_pdf [P] f32;
     rng, pixel [P] i64 (the port's masked uint32 and pixel index); lbn,
-    bounce [P] i32; active [P] bool, which is the prefix [0, alive) since
-    the pool is compacted every wave; and the host integers waves, next
-    (samples spawned) and alive. L is 0 outside the active prefix, as in
+    bounce, medium_id [P] i32 (medium_id: the material whose medium the
+    lane is inside, -1 outside any); active [P] bool, which is the prefix
+    [0, alive) since the pool is compacted every wave; and the host
+    integers waves, next (samples spawned) and alive. L is 0 outside the active prefix, as in
     JAX; the other fields of rows past it are stale."""
     _check_settings(settings)
     stop_after_waves = int(stop_after_waves)
@@ -122,7 +130,11 @@ def make_regen_integrator(settings: RenderSettings, width, height,
         pixel = torch.zeros((P,), dtype=torch.int64, device=device)
         lbn = torch.zeros((P,), dtype=torch.int32, device=device)
         bounce = torch.zeros((P,), dtype=torch.int32, device=device)
+        medium_id = torch.full((P,), -1, dtype=torch.int32, device=device)
         rays = torch.zeros((), dtype=torch.float64, device=device)
+        if settings.use_distant_light:
+            ddis = normalize(torch.tensor(settings.distant_light_dir, **f32))
+            ldis = torch.tensor(settings.distant_light_L, **f32)
         nxt, alive, waves = 0, 0, 0
 
         while ((nxt < tot or alive > 0)
@@ -151,6 +163,7 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                 pixel[s] = pixel_new
                 lbn[s] = settings.bounce_min
                 bounce[s] = 0
+                medium_id[s] = -1
                 nxt += n_spawn
             n_act = alive + n_spawn
             if with_stats:
@@ -165,7 +178,16 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             hit_slot, hit_t = trace_rays(scene, settings, o, d, RAY_MIN,
                                          RAY_MAX, anyhit=False,
                                          active=active, active_prefix=n_act)
-            miss = hit_t > 1e10
+            lbn_a = lbn[a]
+            if settings.has_media:
+                r, o, d, m, sampled_medium = medium_interaction(
+                    scene, r, o, d, m, hit_t, medium_id[a], active)
+                lbn_a = torch.where(
+                    sampled_medium,
+                    torch.clamp_max(lbn_a + 1, settings.bounce_max), lbn_a)
+                miss = ~sampled_medium & (hit_t > 1e10)
+            else:
+                miss = hit_t > 1e10
             hitpoint = o + d * hit_t[:, None]
             hit_uv, smooth_n, mat_id, tri_n = fetch_attributes(
                 scene, hit_slot, hitpoint)
@@ -181,7 +203,7 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                 env = env_miss_weighted(scene, settings, d, pdf_prev,
                                         cam_vec[15])
             contrib = torch.where(miss[:, None], m * env, 0.0)
-            surf = ~miss
+            surf = ~miss & ~sampled_medium if settings.has_media else ~miss
 
             mat = gather_material(scene, mat_id)
             use_sn = mat["useNormal"] != 0
@@ -197,9 +219,19 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             contrib = contrib + torch.where(surf[:, None], m * mat["emit"],
                                             0.0)
 
-            r, next_dir, mask_mul, offset, term, binc, _aux = shade(
+            r, next_dir, mask_mul, offset, term, binc, aux = shade(
                 scene, settings, r, d, n, nl, into, mat, objcol)
             new_orig = hitpoint + nl * (offset * RAY_MIN)[:, None]
+            if settings.has_bssrdf:
+                ss_lanes = surf & aux["ss_refract"]
+                (r, bs_orig, bs_dir, bs_mul, bs_ok, bs_is_mul,
+                 bs_normal) = bssrdf_scatter(
+                    scene, settings, r, hitpoint, aux["ss_normal"], mat,
+                    mat_id, objcol, ss_lanes)
+                use_bs = ss_lanes & bs_ok
+                new_orig = torch.where(use_bs[:, None], bs_orig, new_orig)
+                next_dir = torch.where(use_bs[:, None], bs_dir, next_dir)
+                mask_mul = torch.where(use_bs[:, None], bs_mul, mask_mul)
             mask_prev = m
             m = torch.where(surf[:, None], m * mask_mul, m)
             o = torch.where(surf[:, None], new_orig, o)
@@ -229,9 +261,55 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                 pdf_new = torch.where(surf & diff_lane, cos_n * INV_PI,
                                       torch.where(surf, -1.0, pdf_prev))
 
-            lb = torch.where(surf, torch.clamp_max(lbn[a] + binc,
+            if settings.use_distant_light:
+                d_light = ddis.expand(d.shape)
+                diff_lane = surf & (mat["refltype"] == MAT_DIFF)
+                cos_th = dot(d_light, nl)
+                cand = diff_lane & (cos_th >= 0.0)
+                cand_all = cand
+                if settings.has_bssrdf:
+                    # BSSRDF exit points also sample the distant light
+                    # (src/renderkernel.cu:815-841)
+                    cos_b = dot(d_light, normalize(bs_normal))
+                    cand_b = use_bs & (cos_b >= 0.0)
+                    cand_all = cand | cand_b
+                if with_stats:
+                    rays += cand_all.sum()
+                _s_slot, s_t = trace_rays(scene, settings, o,
+                                          d_light.contiguous(), RAY_MIN,
+                                          RAY_MAX, anyhit=True,
+                                          active=cand_all)
+                lit = cand & (s_t > 1e10)
+                pdf_s = torch.abs(cos_th) * INV_PI
+                w = (pdf_s + 1.0) / (pdf_s * pdf_s + 1.0)
+                # m, not mask_prev: the reference weighs this term with the
+                # mask after the surface's multiply (quirk kept)
+                contrib = contrib + torch.where(
+                    lit[:, None], m * (objcol * INV_PI) * ldis * w[:, None],
+                    0.0)
+                if settings.has_bssrdf:
+                    lit_b = cand_b & (s_t > 1e10)
+                    eta_t = mat["etaT"]
+                    surface_f = ((1.0 - fresnel_dielectric(
+                        torch.abs(cos_b), 1.0, eta_t))
+                        / (1.0 - 2.0 * fresnel_moment_1(1.0 / eta_t))) \
+                        * INV_PI
+                    pdf_b2 = torch.abs(cos_b) * INV_PI
+                    w_b = (pdf_b2 + 1.0) / (pdf_b2 * pdf_b2 + 1.0)
+                    contrib = contrib + torch.where(
+                        lit_b[:, None],
+                        mask_prev * bs_is_mul * (surface_f * w_b)[:, None]
+                        * ldis, 0.0)
+
+            lb = torch.where(surf, torch.clamp_max(lbn_a + binc,
                                                    settings.bounce_max),
-                             lbn[a])
+                             lbn_a)
+            mid = medium_id[a]
+            if settings.has_media:
+                refr = surf & aux["glass_refract"]
+                mid = torch.where(refr & into & (mat["has_medium"] != 0),
+                                  mat_id, mid)
+                mid = torch.where(refr & ~into, -1, mid)
             bn = bounce[a] + 1
             finished = (miss | (surf & term) | (bn >= lb)
                         | (bn >= settings.bounce_max))
@@ -253,13 +331,14 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                               (torch.clamp_min(hit_slot, 0) << 3) | oct_)
             src = torch.argsort(key, stable=True)
             # packed row, int32 bits: orig 0:3 | dir 3:6 | mask 6:9 |
-            # bsdf_pdf 9 | L 10:13 | rng 13 | pixel 14 | lbn + bounce<<8 15
+            # bsdf_pdf 9 | L 10:13 | rng 13 | pixel 14 |
+            # lbn + bounce<<8 + (medium_id+1)<<16 15
             pmat = torch.cat([
                 o.view(torch.int32), d.view(torch.int32), m.view(torch.int32),
                 pdf_new[:, None].contiguous().view(torch.int32),
                 ell_a.view(torch.int32),
                 r.to(torch.int32)[:, None], pixel[a].to(torch.int32)[:, None],
-                (lb | (bn << 8))[:, None]], dim=1)[src]
+                (lb | (bn << 8) | ((mid + 1) << 16))[:, None]], dim=1)[src]
             orig[a] = pmat[:, 0:3].contiguous().view(torch.float32)
             raydir[a] = pmat[:, 3:6].contiguous().view(torch.float32)
             mask[a] = pmat[:, 6:9].contiguous().view(torch.float32)
@@ -268,7 +347,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             rng[a] = pmat[:, 13].to(torch.int64) & MASK32
             pixel[a] = pmat[:, 14].to(torch.int64)
             lbn[a] = pmat[:, 15] & 0xFF
-            bounce[a] = pmat[:, 15] >> 8
+            bounce[a] = (pmat[:, 15] >> 8) & 0xFF
+            medium_id[a] = (pmat[:, 15] >> 16) - 1
             if deferred and n_fin:
                 # the paths that died this wave are now rows [alive, n_act)
                 dead = slice(alive, n_act)
@@ -279,7 +359,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             return {"orig": orig, "dir": raydir, "mask": mask,
                     "L": torch.where(active[:, None], ell, 0.0),
                     "bsdf_pdf": bsdf_pdf, "rng": rng, "pixel": pixel,
-                    "lbn": lbn, "bounce": bounce, "active": active,
+                    "lbn": lbn, "bounce": bounce, "medium_id": medium_id,
+                    "active": active,
                     "waves": waves, "next": nxt, "alive": alive}
         if with_stats:
             return accum, waves, float(rays)

@@ -9,6 +9,7 @@ it into an [H,W,3] image.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -24,6 +25,12 @@ from .wavefront import (
     RenderSettings, pack_tri_attributes, pack_mat_table, pack_envtex_quad,
 )
 from .envsample import build_env_distribution
+
+
+@functools.lru_cache(maxsize=2)
+def _bssrdf_table_cached(g=0.0, eta=1.4):
+    from ..bssrdf.tabulate import compute_beam_diffusion_table
+    return compute_beam_diffusion_table(g=g, eta=eta)
 
 
 def lane_pixel_xy(pixel_index, width, height, block=32):
@@ -125,6 +132,16 @@ def build_scene(flat_bvh, mat_arrays, envmap, texture, settings, env_const,
         "mat_table": pack_mat_table(mat_arrays),
         "env_const": np.asarray(env_const, np.float32),
     }
+    if settings.has_bssrdf:
+        # the photon-beam-diffusion table (g=0, eta=1.4, 100x64) of the
+        # reference's initBssrdfTable (src/main.cpp:408-415), read by the
+        # tabulated profile path (bssrdf_use_soe=False)
+        tbl = _bssrdf_table_cached()
+        scene["bssrdf_rho"] = np.asarray(tbl.rho, np.float32)
+        scene["bssrdf_radius"] = np.asarray(tbl.radius, np.float32)
+        scene["bssrdf_profile"] = np.asarray(tbl.profile, np.float32)
+        scene["bssrdf_cdf"] = np.asarray(tbl.profile_cdf, np.float32)
+        scene["bssrdf_rho_eff"] = np.asarray(tbl.rho_eff, np.float32)
     if envmap is not None:
         env = np.asarray(envmap, np.float32)
         equad = make_quad_texture(env, wrap_u=False, wrap_v=False)
@@ -184,18 +201,23 @@ class Renderer:
                 has_media=has_media,
                 has_bssrdf=has_bssrdf,
             )
+            # The JAX package derives its packet shape here from the
+            # workload class (media / BSSRDF scenes, and streams over its
+            # SMEM table budget); copied so that one settings object
+            # describes a render in both packages. The port's traversal
+            # returns the same result for every packet shape.
+            from ..ops.traverse_packet import table_fits_smem
+            if has_media or has_bssrdf:
+                settings = dataclasses.replace(
+                    settings, packet_tile_sub=32, packet_interleave=4)
+            if not table_fits_smem(flat_bvh.prims.shape[0]):
+                settings = dataclasses.replace(
+                    settings, packet_tile_sub=16, packet_interleave=4)
         if settings.integrator == "bounce":
             raise NotImplementedError(
                 "integrator='bounce' is not ported yet (ROADMAP A10)")
         if settings.integrator != "regen":
             raise ValueError("unknown integrator %r" % (settings.integrator,))
-        if has_media or settings.has_media:
-            raise NotImplementedError(
-                "participating media are not ported yet (ROADMAP A11)")
-        if has_bssrdf or settings.has_bssrdf:
-            raise NotImplementedError(
-                "BSSRDF subsurface scattering is not ported yet "
-                "(ROADMAP A12)")
         # the stack only needs the tree's actual depth
         settings = dataclasses.replace(
             settings, stack_depth=min(settings.stack_depth,

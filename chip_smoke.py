@@ -62,7 +62,22 @@ back to the CPU. Phases, each fatal on failure:
    packet_table_mem="split" (the path of the table instantiations), 5d's
    timings on each stream, and on large_scene the step census under both
    residencies (the path of the counting table instantiations);
-6. print the kernels line, the card line, and the result line (last).
+8. the bounce integrator, lane chunks and shards, the last regen orders
+   and the CLI: (8a) bounce on TestObj at 1024x1024 with default settings,
+   a 1-spp warm-up and 2 timed spp with launch counts set to 0 before and
+   read after, then regen on the same frames, the two images held to the
+   gate statistics; (8b) the same on large_organic_scene("sss") at 1 spp,
+   where the BSSRDF probes launch row 3 through bounce; (8c) bounce in 4
+   lane chunks and in 2 shards on the one card equal the whole frame bit
+   for bit, 2 regen shards equal it under the gate statistics; (8d)
+   regen_order="inplace" against "compact" under the gate statistics and
+   regen_permute="sort" against "gather" bit for bit, at 1024x1024, 2 spp;
+   (8e) the CLI, python -m tpu_pathtracer_torch.tools.render, renders the
+   demo at 256x256 to a PPM with a checkpoint at 8 spp, then resumes it to
+   16 spp;
+6. print the kernels line (rows 1-3 also carry their launches on the
+   bounce path, "launches_bounce"), the card line, and the result line
+   (last).
 
 Bounds. A traversal kernel's bound is the larger of its bytes (active
 rays, the table once, mask and outputs) over 3.35 TB/s and its operations over the
@@ -90,6 +105,7 @@ N_CHECK = 65536
 N_BRUTE = 4096
 N_TIME = 1 << 20
 P_DMA = 1 << 20
+CLI_SIZE = 256             # phase 8e's image
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM FP32 outside the tensor cores
 OPS_PER_STEP = 39          # FP32 arithmetic of a triangle step (node: 48)
@@ -440,6 +456,7 @@ def timed_frames(np, torch, ops, r, rc, spp, tag):
     assert np.all(np.isfinite(img)), "%s: non-finite radiance" % tag
     assert float(img.mean()) > 0.01, "%s: black image" % tag
     rec = {"width": r.width, "height": r.height, "spp": spp,
+           "integrator": r.settings.integrator,
            "pool_lanes": r.settings.pool_lanes,
            "table_mem": r.settings.packet_table_mem,
            "ms_per_frame": ms / spp, "host_s": t_host, "waves": waves,
@@ -447,11 +464,187 @@ def timed_frames(np, torch, ops, r, rc, spp, tag):
            "mean_radiance": float(img.mean()), "launches": launches,
            "launches_per_frame": {k: v / spp for k, v in launches.items()
                                   if v}}
-    log("%s %dx%d x %d spp (table_mem=%s): %.1f ms per 1-spp frame, %d "
-        "waves, %.0f rays, %.1f Mrays/s, launches per frame %s"
-        % (tag, r.width, r.height, spp, rec["table_mem"], ms / spp, waves,
+    log("%s %dx%d x %d spp (%s, table_mem=%s): %.1f ms per 1-spp frame, "
+        "%d %s, %.0f rays, %.1f Mrays/s, launches per frame %s"
+        % (tag, r.width, r.height, spp, r.settings.integrator,
+           rec["table_mem"], ms / spp, waves,
+           "bounces" if r.settings.integrator == "bounce" else "waves",
            rays, rec["mrays_per_s"], rec["launches_per_frame"]))
     return rec, img
+
+
+def event_ms(torch, fn):
+    """(result, ms) of one call of fn, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def run_cli(args, tag):
+    """Run the port's CLI in a subprocess from the checkout's root; fatal
+    unless it exits 0. Returns (seconds, stdout)."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_pathtracer_torch.tools.render"] + args,
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    dt = time.time() - t0
+    for line in (proc.stdout + proc.stderr).strip().splitlines()[-4:]:
+        log("  cli %s | %s" % (tag, line))
+    assert proc.returncode == 0, (tag, proc.returncode, proc.stderr[-2000:])
+    return dt, proc.stdout
+
+
+def phase8(np, torch, ops, dev, fb, mats, envmap, texture, sss_parts, rc,
+           cache, W):
+    """Phase 8 at W x W (rc: the camera at that size): the bounce
+    integrator, lane chunks and shards, the last regen orders and the CLI.
+    Returns the record."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.parallel import ShardedRenderer, make_mesh
+    from tpu_pathtracer_torch.core.image import read_ppm
+    H = W
+    rec = {}
+
+    # ---- 8a. bounce on TestObj, full width, against regen ----
+    r = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                 height=H, device=dev)
+    regen_s = r.settings
+    bounce_s = dataclasses.replace(regen_s, integrator="bounce")
+    r.settings = bounce_s
+    b_rec, b_img = timed_frames(np, torch, ops, r, rc, 2, "8a bounce")
+    for k in ("traverse_closest", "traverse_anyhit"):
+        assert b_rec["launches"][k] > 0, "bounce never launched %s" % k
+    r.settings = regen_s
+    g_rec, g_img = timed_frames(np, torch, ops, r, rc, 2, "8a regen")
+    b_rec["gate_vs_regen"] = gate(np, b_img, g_img, "bounce vs regen")
+    b_rec["bounce_over_regen"] = b_rec["ms_per_frame"] / g_rec["ms_per_frame"]
+    log("  8a bounce/regen frame time %.3f (%.1f / %.1f ms), %.1f bounces "
+        "a frame" % (b_rec["bounce_over_regen"], b_rec["ms_per_frame"],
+                     g_rec["ms_per_frame"], b_rec["waves"] / 2))
+    rec["testobj"] = {"bounce": b_rec, "regen": g_rec}
+
+    # ---- 8b. bounce on the organic sss scene: row 3 through bounce ----
+    fb_s, mats_s, env_s, tex_s = sss_parts
+    rs = Renderer(fb_s, mats_s, envmap=env_s, texture=tex_s, width=W,
+                  height=H, device=dev)
+    sss_regen = rs.settings
+    rs.settings = dataclasses.replace(sss_regen, integrator="bounce")
+    sb_rec, sb_img = timed_frames(np, torch, ops, rs, rc, 1, "8b sss bounce")
+    assert sb_rec["launches"]["closest_mask_lane_tmax"] > 0, \
+        "bounce on the sss scene never launched the probe form (row 3)"
+    rs.settings = sss_regen
+    sg_rec, sg_img = timed_frames(np, torch, ops, rs, rc, 1, "8b sss regen")
+    sb_rec["gate_vs_regen"] = gate(np, sb_img, sg_img, "sss bounce/regen")
+    sb_rec["bounce_over_regen"] = sb_rec["ms_per_frame"] \
+        / sg_rec["ms_per_frame"]
+    rec["organic_sss"] = {"bounce": sb_rec, "regen": sg_rec}
+    del rs
+    torch.cuda.empty_cache()
+
+    # ---- 8c. lane chunks and 2 shards on the one card, 1 spp ----
+    r.settings = bounce_s
+
+    def frame(rr):
+        return rr.render_frames(rr.zeros_accum(), rc, 1, 1)
+    whole, t_whole = event_ms(torch, lambda: frame(r))
+    chunked = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                       height=H, settings=bounce_s, lane_chunk=W * H // 4,
+                       base_scene=r.scene, device=dev)
+    assert chunked.scene["packed"] is r.scene["packed"]
+    got, t_chunk = event_ms(torch, lambda: frame(chunked))
+    assert torch.equal(got, whole), "4 lane chunks != the whole bounce frame"
+    sr = ShardedRenderer(r, mesh=make_mesh([dev, dev]))
+    got, t_shard = event_ms(torch, lambda: frame(sr))
+    assert torch.equal(got[:W * H], whole), "2 shards != 1 (bounce)"
+    r.settings = regen_s
+    g_whole, t_g_whole = event_ms(torch, lambda: frame(r))
+    sr = ShardedRenderer(r, mesh=make_mesh([dev, dev]))
+    got, t_g_shard = event_ms(torch, lambda: frame(sr))
+    g_gate = gate(np, got[:W * H].cpu().numpy(), g_whole.cpu().numpy(),
+                  "2 regen shards")
+    rec["chunks_shards"] = {
+        "bounce_whole_ms": t_whole, "bounce_4_chunks_ms": t_chunk,
+        "bounce_2_shards_ms": t_shard, "regen_whole_ms": t_g_whole,
+        "regen_2_shards_ms": t_g_shard, "regen_shards_gate": g_gate,
+        "bounce_bit_for_bit": True}
+    log("  8c bounce whole %.1f ms, 4 chunks %.1f ms, 2 shards %.1f ms (bit "
+        "for bit); regen whole %.1f ms, 2 shards %.1f ms"
+        % (t_whole, t_chunk, t_shard, t_g_whole, t_g_shard))
+    del whole, got, g_whole, sr, chunked
+
+    # ---- 8d. the last regen orders at full width, 2 spp ----
+    def frames2(settings):
+        r.settings = settings
+        return event_ms(torch, lambda: r.render_frames(r.zeros_accum(), rc,
+                                                       1, 2))
+    frames2(regen_s)                                  # warm-up
+    compact, t_compact = frames2(regen_s)
+    inplace, t_inplace = frames2(dataclasses.replace(regen_s,
+                                                     regen_order="inplace"))
+    in_gate = gate(np, inplace.cpu().numpy() / 2, compact.cpu().numpy() / 2,
+                   "inplace/compact")
+    # CUDA's index_add_ adds a pixel's two samples in no fixed order when
+    # both die in one wave; the bit-for-bit pair runs under torch's
+    # deterministic index_add_, which adds in index order
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        gather_img, t_gather = frames2(regen_s)
+        sort_img, t_sort = frames2(dataclasses.replace(regen_s,
+                                                       regen_permute="sort"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(sort_img, gather_img), "sort != gather"
+    rec["orders"] = {"compact_ms_per_frame": t_compact / 2,
+                     "inplace_ms_per_frame": t_inplace / 2,
+                     "inplace_gate": in_gate,
+                     "gather_deterministic_ms_per_frame": t_gather / 2,
+                     "sort_deterministic_ms_per_frame": t_sort / 2,
+                     "sort_bit_for_bit": True}
+    log("  8d ms per frame: compact %.1f, inplace %.1f; under deterministic "
+        "index_add_: gather %.1f, sort %.1f (bit for bit)"
+        % (t_compact / 2, t_inplace / 2, t_gather / 2, t_sort / 2))
+    r.settings = regen_s
+    del r, compact, inplace, gather_img, sort_img
+    torch.cuda.empty_cache()
+
+    # ---- 8e. the CLI, to a PPM, checkpointed, then resumed ----
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        out, ck = os.path.join(tmp, "x.ppm"), os.path.join(tmp, "x.npz")
+        common = ["--demo", "default", "--size", str(CLI_SIZE), "--out", out,
+                  "--cache-dir", cache]
+        t_first, _ = run_cli(common + ["--spp", "8", "--checkpoint", ck],
+                             "8 spp")
+        assert int(np.load(ck)["frame"]) == 8
+        t_resume, text = run_cli(common + ["--spp", "16", "--resume", ck],
+                                 "resume to 16 spp")
+        assert "resumed at frame 8" in text, text
+        img = read_ppm(out)
+        z = np.load(ck)
+        assert img.shape == (CLI_SIZE, CLI_SIZE, 3) \
+            and np.isfinite(img).all()
+        assert img.max() > 0 and img.mean() > 0.02, "the CLI's image is black"
+        assert int(z["frame"]) == 16, int(z["frame"])
+        assert np.isfinite(z["accum"]).all() and z["accum"].mean() > 0
+        with open(out + ".wall.json") as f:
+            wall = json.load(f)
+        rec["cli"] = {"first_s": t_first, "resume_s": t_resume,
+                      "ppm_mean": float(img.mean()), "frame": int(z["frame"]),
+                      "wall": wall}
+        log("  8e CLI: 8 spp in %.1f s, resumed to 16 spp in %.1f s, PPM mean "
+            "%.1f, checkpoint frame %d" % (t_first, t_resume, img.mean(),
+                                           int(z["frame"])))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
 
 
 DMA_CASES = (("gather_wide", 128, "perm", 1, "gather"),
@@ -944,6 +1137,12 @@ def main():
     report["frames"] = frames
     report["residency"] = residency
 
+    # ---- 8. bounce, chunks and shards, the last regen orders, the CLI ----
+    t0 = time.time()
+    report["phase8"] = phase8(np, torch, ops, dev, fb, mats, envmap, texture,
+                              big_scenes["organic_sss"], rc, cache, W)
+    report["phase8"]["s"] = time.time() - t0
+
     assert "jax" not in sys.modules, "the port imported jax"
     assert not [m for m in sys.modules if m == "tpu_pathtracer"
                 or m.startswith("tpu_pathtracer.")], \
@@ -1007,6 +1206,19 @@ def main():
             "bound_ms": row["count_bound_ms" if counted else "bound_ms"],
             "bound_by": row["count_bound_by" if counted else "bound_by"],
             "library_ms": None})
+    # rows 1-3 on the bounce path (phase 8a / 8b), counted there
+    p8 = report["phase8"]
+    bounce_runs = {
+        "traverse_closest": p8["testobj"]["bounce"]["launches"][
+            "traverse_closest"],
+        "traverse_anyhit": p8["testobj"]["bounce"]["launches"][
+            "traverse_anyhit"],
+        "traverse_closest_mask_lane_tmax": p8["organic_sss"]["bounce"][
+            "launches"]["closest_mask_lane_tmax"]}
+    for k in kernels:
+        if k["name"] in bounce_runs:
+            k["launches_bounce"] = bounce_runs[k["name"]]
+            assert k["launches_bounce"] > 0, (k["name"], "bounce")
     for k in kernels:
         assert k["launches"] > 0, "%s was launched on no path" % k["name"]
     dma_src = "tpu_pathtracer_torch/csrc/dma_rows.cu"

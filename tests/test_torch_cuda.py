@@ -475,3 +475,101 @@ def test_media_and_bssrdf_render_on_card(device, variant):
         assert float(np.median(dabs)) < 1e-4, key
         assert abs(img.mean() / want.mean() - 1.0) < 0.01, key
         assert float(np.sqrt((dabs ** 2).mean())) < 0.1, key
+
+
+def _gate(img, want, key=""):
+    dabs = np.abs(img - want)
+    assert np.all(np.isfinite(img)), key
+    assert float(np.median(dabs)) < 1e-4, key
+    assert abs(img.mean() / want.mean() - 1.0) < 0.01, key
+    assert float(np.sqrt((dabs ** 2).mean())) < 0.1, key
+
+
+def _bounce_renderer(dev, W, variant="default", **kw):
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.tracer.wavefront import RenderSettings
+    fb, mats, envmap, texture = demo.testobj_scene(cache_dir=None,
+                                                   variant=variant)
+    s = RenderSettings(integrator="bounce",
+                       has_media=variant == "media",
+                       has_bssrdf=variant == "subsurface")
+    return Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                    height=W, settings=s, device=dev, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["default", "media", "subsurface"])
+def test_bounce_on_card_matches_cpu(device, variant):
+    """The bounce integrator on the card: the CPU render of the same
+    samples under the gate statistics; closest hit (full-width mask) and
+    any hit launch, and the BSSRDF probes launch the per-lane-tmax form."""
+    W = 48
+    rc = demo.default_camera(W, W).build_render_camera()
+    imgs = {}
+    for dev in ("cpu", device):
+        r = _bounce_renderer(dev, W, variant)
+        before = {**ops.LAUNCHES, **ops.FORM_LAUNCHES}
+        acc = r.render_frames(r.zeros_accum(), rc, 1, 4)
+        imgs[str(dev)] = r.accum_to_buffer(acc / 4)
+        after = {**ops.LAUNCHES, **ops.FORM_LAUNCHES}
+        if dev != "cpu":
+            for k in ("traverse_closest", "traverse_anyhit"):
+                assert after[k] > before[k], k
+            probes = after["closest_mask_lane_tmax"] \
+                - before["closest_mask_lane_tmax"]
+            assert (probes > 0) == (variant == "subsurface")
+    _gate(imgs[str(device)], imgs["cpu"], variant)
+
+
+@pytest.mark.cuda
+def test_bounce_chunks_and_shards_on_card_match_the_whole(device):
+    """Chunked bounce and 2 shards on one card give the whole render bit
+    for bit; 2 regen shards give it under the gate statistics."""
+    from tpu_pathtracer_torch.parallel import ShardedRenderer, make_mesh
+    W = 64
+    rc = demo.default_camera(W, W).build_render_camera()
+    whole = _bounce_renderer(device, W)
+    a = whole.render_frames(whole.zeros_accum(), rc, 1, 2)
+    chunked = _bounce_renderer(device, W, lane_chunk=1000)
+    assert torch.equal(chunked.render_frames(chunked.zeros_accum(), rc, 1,
+                                             2), a)
+    sr = ShardedRenderer(whole, mesh=make_mesh([device, device]))
+    assert torch.equal(sr.render_frames(sr.zeros_accum(), rc, 1, 2)
+                       [:W * W], a)
+    import dataclasses
+    regen = _bounce_renderer(device, W)
+    regen.settings = dataclasses.replace(regen.settings, integrator="regen")
+    b = regen.render_frames(regen.zeros_accum(), rc, 1, 2)
+    sr = ShardedRenderer(regen, mesh=make_mesh([device, device]))
+    c = sr.render_frames(sr.zeros_accum(), rc, 1, 2)[:W * W]
+    _gate(regen.accum_to_buffer(c), regen.accum_to_buffer(b), "regen")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(regen_order="inplace"),
+                                dict(regen_permute="sort")],
+                         ids=["inplace", "sort"])
+def test_regen_orders_on_card(device, kw):
+    """inplace gives the compact image under the gate statistics, sort the
+    gather image bit for bit, on the card. CUDA's index_add_ adds with
+    atomics, in no fixed order where a pixel's two samples die in one
+    wave; the bit-for-bit pair runs under torch's deterministic index_add_
+    (which adds in index order) so that the order is the same in both."""
+    import dataclasses
+    W = 64
+    rc = demo.default_camera(W, W).build_render_camera()
+    r = _bounce_renderer(device, W)
+    base = dataclasses.replace(r.settings, integrator="regen")
+    exact = "regen_permute" in kw
+    torch.use_deterministic_algorithms(exact, warn_only=True)
+    try:
+        r.settings = base
+        a = r.render_frames(r.zeros_accum(), rc, 1, 2)
+        r.settings = dataclasses.replace(base, **kw)
+        b = r.render_frames(r.zeros_accum(), rc, 1, 2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if exact:
+        assert torch.equal(a, b)
+    else:
+        _gate(r.accum_to_buffer(b), r.accum_to_buffer(a), "inplace")

@@ -34,7 +34,9 @@ def test_port_has_the_slice_modules():
               "accel.native_build", "tools.probe_steps", "tools.probe_dma",
               "utils.cuda_build", "convert", "scene.plyloader", "bssrdf",
               "bssrdf.tabulate", "bssrdf.sample", "media", "tracer.medium",
-              "tracer.bssrdf_shade"):
+              "tracer.bssrdf_shade", "parallel", "parallel.sharding",
+              "scene.hdr", "scene.objloader", "utils.timing",
+              "tools.render"):
         assert "tpu_pathtracer_torch." + m in mods, m
 
 
@@ -48,13 +50,17 @@ def test_importing_every_port_module_leaves_jax_out():
             "print('JAXMODS', bad)\n"
             "leaked = [k for k in sys.modules if k == 'tpu_pathtracer'\n"
             "          or k.startswith('tpu_pathtracer.')]\n"
-            "print('LEAKED', sorted(leaked))\n" % (_port_modules(),))
+            "print('LEAKED', sorted(leaked))\n"
+            "print('PIL', 'PIL' in sys.modules)\n" % (_port_modules(),))
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "JAXMODS []" in out.stdout, out.stdout
     assert "LEAKED []" in out.stdout, out.stdout
+    # PIL is optional: the card's machine has none, and no module (the CLI
+    # included) may need it to import
+    assert "PIL False" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", ["tpu_pathtracer_torch", "chip_smoke.py"])

@@ -132,11 +132,26 @@ def test_scene_dict_bit_exact_and_scene_from_jax():
 
 @pytest.mark.parametrize("what", ["bounce"])
 def test_renderer_raises_for_unported_features(what):
+    """The bounce integrator is ported: the Renderer takes it. What is left
+    unported, the dup_stage profiling hook, raises when a frame starts; an
+    unknown integrator raises at construction."""
     fb, mats, envmap, texture = _scene("default")
-    with pytest.raises(NotImplementedError):
+    r = trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
+                           width=8, height=8,
+                           settings=RenderSettings(integrator=what),
+                           device="cpu")
+    assert r.settings.integrator == what
+    r = trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
+                           width=8, height=8,
+                           settings=RenderSettings(dup_stage="shade"),
+                           device="cpu")
+    rc = tdemo.default_camera(8, 8).build_render_camera()
+    with pytest.raises(NotImplementedError, match="profiler"):
+        r.render_frames(r.zeros_accum(), rc, 1, 1)
+    with pytest.raises(ValueError):
         trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
                            width=8, height=8,
-                           settings=RenderSettings(integrator="bounce"),
+                           settings=RenderSettings(integrator="bounse"),
                            device="cpu")
 
 

@@ -180,7 +180,8 @@ def _call(**kw):
 @pytest.mark.parametrize("kw,exc", [
     (dict(active=torch.ones(16, dtype=torch.bool), active_prefix=3),
      ValueError),
-    (dict(active_prefix=3, tmax=torch.full((16,), 5.0)), ValueError),
+    (dict(active_prefix=3, tmax=torch.full((16,), 5.0), queue_k=16,
+          interleave=4), ValueError),
     (dict(tmin=torch.full((16,), 1e-4)), ValueError),
     (dict(table_mem="smem_split"), ValueError),
     (dict(table_mem="split", step_mode="branch"), ValueError),
@@ -191,6 +192,31 @@ def _call(**kw):
 def test_wrapper_raises(kw, exc):
     with pytest.raises(exc):
         _call(**kw)
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_prefix_with_lane_tmax_lowers_to_a_mask(anyhit):
+    """active_prefix with a per-lane tmax runs wherever the JAX kernel runs
+    it (it raises only for queue_k > interleave on closest hit): the
+    prefix is lowered to the mask arange(N) < prefix, so the result is the
+    mask form's, and JAX's."""
+    _, fb, packed = _small()
+    o, d, g = _rays(16, 3)
+    tmax = g.uniform(0.5, 6.0, 16).astype(np.float32)
+    sd = fb.max_depth + 2
+    js, jt = jpacket(jnp.asarray(packed), jnp.asarray(o), jnp.asarray(d),
+                     RAY_MIN, jnp.asarray(tmax), anyhit=anyhit,
+                     stack_depth=sd, active_prefix=3, interpret=True)
+    ts, tt = _call(tmax=torch.from_numpy(tmax), active_prefix=3,
+                   anyhit=anyhit, stack_depth=sd)
+    ms, mt = _call(tmax=torch.from_numpy(tmax), anyhit=anyhit,
+                   stack_depth=sd, active=torch.arange(16) < 3)
+    assert torch.equal(ts, ms) and torch.equal(tt, mt)
+    assert (ts[3:] == -1).all()
+    assert torch.equal(tt[3:], torch.from_numpy(tmax[3:]))
+    assert ((ts.numpy() >= 0) == (np.asarray(js) >= 0)).all()
+    if not anyhit:
+        _agree(ts, tt, js, jt)
 
 
 @pytest.mark.parametrize("anyhit", [False, True])

@@ -113,12 +113,16 @@ def _is_scalar(x):
 
 
 def _check_args(K, tmin, tmax, active, active_prefix, table_mem, step_mode,
-                queue_k, interleave, step_unroll, stack_depth):
+                queue_k, interleave, step_unroll, stack_depth, anyhit):
     if active_prefix is not None:
         if active is not None:
             raise ValueError("pass active or active_prefix, not both")
-        if not _is_scalar(tmax):
-            raise ValueError("active_prefix requires a scalar tmax")
+        # the JAX kernel takes the prefix form only on its closest-hit
+        # queue path, which has no per-lane tmax operand; elsewhere the
+        # prefix is lowered to a mask (packet_intersect does the same)
+        if not _is_scalar(tmax) and queue_k > interleave and not anyhit:
+            raise ValueError("active_prefix with queue_k > interleave "
+                             "requires a scalar tmax")
     if not _is_scalar(tmin):
         raise ValueError("packet_intersect requires a scalar tmin "
                          "(no caller needs a per-lane tmin)")
@@ -158,10 +162,13 @@ def packet_intersect(packed, orig, raydir, tmin, tmax, anyhit=False,
     accepted hit (callers read only whether t < tmax)."""
     _check_args(packed.shape[0], tmin, tmax, active, active_prefix,
                 table_mem, step_mode, queue_k, interleave, step_unroll,
-                stack_depth)
+                stack_depth, anyhit)
     N = orig.shape[0]
     if active_prefix is not None:
         active_prefix = int(active_prefix)
+        if not _is_scalar(tmax):
+            active = torch.arange(N, device=orig.device) < active_prefix
+            active_prefix = None
     if orig.device.type == "cpu":
         if active_prefix is not None:
             active = torch.arange(N) < active_prefix
@@ -279,13 +286,17 @@ def launch_fn(packed, orig, raydir, tmin, tmax, anyhit=False,
     `table_plan` gives: 0 (the `__ldg` kernel) up to min(K, TABLE_MAX_ROWS)
     where the plan has a table, only 0 where it has none."""
     _check_args(packed.shape[0], tmin, tmax, active, active_prefix,
-                table_mem, "fused", 0, 4, 1, stack_depth)
+                table_mem, "fused", 0, 4, 1, stack_depth, anyhit)
     if orig.device.type != "cuda" or \
             orig.device.index != torch.cuda.current_device():
         raise ValueError("launch_fn: orig must lie on the current CUDA "
                          "device, not %s" % orig.device)
     if active_prefix is not None:
         active_prefix = int(active_prefix)
+        if not _is_scalar(tmax):
+            active = torch.arange(orig.shape[0], device=orig.device) \
+                < active_prefix
+            active_prefix = None
     out, _, args, _ = _prepare(packed, orig, raydir, float(tmin), tmax,
                                anyhit, stack_depth, active, active_prefix,
                                count_steps, table_mem, table_rows)

@@ -1,7 +1,8 @@
-"""Quad-row texture and environment sampling (port of scene/texture.py).
+"""Texture loading and texture / environment sampling (port of
+scene/texture.py).
 
-`make_quad_texture` runs on the host in numpy and gives the same rows as
-the JAX package. The samplers index the rows with integer math that keeps
+`load_texture` and `make_quad_texture` run on the host in numpy and give
+the same arrays as the JAX package. The samplers index the rows with integer math that keeps
 every index in range: `torch.remainder` for wrap (jnp.mod's sign rule,
 never fmod) and a clamp otherwise, because an out-of-range index on a CUDA
 tensor is a device-side assert where jnp.take would clamp.
@@ -11,7 +12,54 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.image import srgb_to_linear
 from ..core.vecmath import TWO_PI, PI
+
+
+def load_texture(path) -> np.ndarray:
+    """Load an LDR image file -> linear float32 [H,W,3] (sRGB decoded, as
+    the reference binds its colour texture). Needs PIL, imported here
+    only."""
+    from PIL import Image
+    img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    return srgb_to_linear(img).astype(np.float32)
+
+
+def _bilinear(tex, u, v, wrap_u, wrap_v):
+    """tex: [H,W,3] tensor; u, v in normalized coords; CUDA-convention
+    linear filter (texel centres at +0.5), four texel gathers."""
+    H, W = tex.shape[0], tex.shape[1]
+    x = u * W - 0.5
+    y = v * H - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0 = x0.to(torch.int32)
+    y0 = y0.to(torch.int32)
+    x1 = x0 + 1
+    y1 = y0 + 1
+    if wrap_u:
+        x0, x1 = torch.remainder(x0, W), torch.remainder(x1, W)
+    else:
+        x0, x1 = torch.clamp(x0, 0, W - 1), torch.clamp(x1, 0, W - 1)
+    if wrap_v:
+        y0, y1 = torch.remainder(y0, H), torch.remainder(y1, H)
+    else:
+        y0, y1 = torch.clamp(y0, 0, H - 1), torch.clamp(y1, 0, H - 1)
+    flat = tex.reshape(-1, tex.shape[-1])
+    c00 = flat[(y0 * W + x0).long()]
+    c01 = flat[(y0 * W + x1).long()]
+    c10 = flat[(y1 * W + x0).long()]
+    c11 = flat[(y1 * W + x1).long()]
+    return (c00 * (1 - fx) * (1 - fy) + c01 * fx * (1 - fy)
+            + c10 * (1 - fx) * fy + c11 * fx * fy)
+
+
+def sample_texture(tex, u, v):
+    """Colour texture fetch: wrap/wrap bilinear."""
+    return _bilinear(tex, torch.remainder(u, 1.0), torch.remainder(v, 1.0),
+                     wrap_u=True, wrap_v=True)
 
 
 def make_quad_texture(tex, wrap_u, wrap_v):
@@ -104,3 +152,10 @@ def sample_envmap_quad(quad, H, W, raydir, rotation):
     """Environment lookup via quad rows (clamp addressing)."""
     u, v = _uv_from_dir(raydir, rotation)
     return _bilinear_quad(quad, H, W, u, v, wrap_u=False, wrap_v=False)
+
+
+def sample_envmap(env, raydir, rotation):
+    """HDR environment lookup (envLight, src/renderkernel.cu:422-437):
+    lat-long mapping, clamp addressing, bilinear filter."""
+    u, v = _uv_from_dir(raydir, rotation)
+    return _bilinear(env, u, v, wrap_u=False, wrap_v=False)

@@ -128,6 +128,12 @@ def sample_env(scene, u1, u2, rotation):
     return d, pdf_uv / (2.0 * PI * PI * sin_t), L
 
 
+def sample_env_dir(scene, u1, u2, rotation):
+    """(dir, pdf) of sample_env, without the radiance."""
+    d, pdf, _ = sample_env(scene, u1, u2, rotation)
+    return d, pdf
+
+
 def power_heuristic(pf, pg):
     pf2 = pf * pf
     return pf2 / torch.clamp_min(pf2 + pg * pg, 1e-20)

@@ -1,5 +1,5 @@
-"""Progressive renderer: camera rays and frame accumulation (port of
-tracer/renderer.py).
+"""Progressive renderer: camera rays, the chunked frame loop and frame
+accumulation (port of tracer/renderer.py).
 
 The accumulation buffer is lane-ordered like the JAX package's: lane i
 holds pixel lane_pixel_xy(i), lanes walking 32x32 pixel blocks, so that
@@ -14,9 +14,9 @@ import functools
 import numpy as np
 import torch
 
-from ..core.rng import RaySampler
+from ..core.rng import RaySampler, wang_hash
 from ..core.vecmath import TWO_PI, PI, normalize, dot, cross
-from ..scene.config import materials_to_arrays, MAT_SUBSURFACE
+from ..scene.config import SceneDesc, materials_to_arrays, MAT_SUBSURFACE
 from ..scene.camera import RenderCamera
 from ..scene.texture import make_quad_texture
 from ..convert import to_device
@@ -115,10 +115,10 @@ def lane_tables(width, height, block=32):
             py[valid][:W * H].astype(np.int32))
 
 
-def build_scene(flat_bvh, mat_arrays, envmap, texture, settings, env_const,
-                lane_px, lane_py):
-    """The scene dict on the host (numpy arrays and Python ints), with the
-    keys and values of the JAX package's Renderer.scene."""
+def build_scene(flat_bvh, mat_arrays, envmap, texture, settings, env_const):
+    """The resolution-independent part of the scene dict on the host (numpy
+    arrays and Python ints), with the keys and values of the JAX package's
+    Renderer.scene; the Renderer adds the lane tables (`lane_*`)."""
     scene = {
         "prims": np.asarray(flat_bvh.prims, np.float32),
         "meta": np.asarray(flat_bvh.meta, np.int32),
@@ -166,28 +166,28 @@ def build_scene(flat_bvh, mat_arrays, envmap, texture, settings, env_const,
         if (envmap is not None and settings.env_importance_sampling
                 and settings.use_texture):
             scene["envtex_quad"] = pack_envtex_quad(equad, tquad)
-    # lane tables padded as the JAX Renderer pads them (to whole lane
-    # chunks of at most 2^23, plus 8192)
-    n = lane_px.shape[0]
-    chunk = min(n, 1 << 23)
-    n_pad = -(-n // chunk) * chunk - n + 8192
-    scene["lane_px"] = np.pad(lane_px, (0, n_pad))
-    scene["lane_py"] = np.pad(lane_py, (0, n_pad))
     return scene
 
 
 class Renderer:
-    """Scene tensors on one device plus the regen frame loop.
+    """Scene tensors on one device plus the frame loop of either integrator.
 
         r = Renderer(flat_bvh, materials, envmap=..., texture=..., width=W,
                      height=H, device="cuda")
         accum = r.render_frames(r.zeros_accum(), camera, 1, spp)
         img = r.accum_to_image(accum, spp)
-    """
+
+    lane_chunk: render the lanes in chunks of at most this many (default:
+    the whole image up to 2^23 lanes); the last chunk is padded and its
+    padding dropped. base_scene: the `scene` of another Renderer built on
+    the same flat_bvh / materials / envmap / texture; its
+    resolution-independent tensors are shared (the same objects, no copy)
+    and only the lane tables are built anew."""
 
     def __init__(self, flat_bvh, materials, envmap=None, texture=None,
                  width=512, height=512, settings: RenderSettings = None,
-                 env_const=(0.0, 0.0, 0.0), *, device):
+                 lane_chunk=None, env_const=(0.0, 0.0, 0.0), base_scene=None,
+                 *, device):
         self.width = int(width)
         self.height = int(height)
         self.device = torch.device(device)
@@ -213,21 +213,31 @@ class Renderer:
             if not table_fits_smem(flat_bvh.prims.shape[0]):
                 settings = dataclasses.replace(
                     settings, packet_tile_sub=16, packet_interleave=4)
-        if settings.integrator == "bounce":
-            raise NotImplementedError(
-                "integrator='bounce' is not ported yet (ROADMAP A10)")
-        if settings.integrator != "regen":
+        if settings.integrator not in ("regen", "bounce"):
             raise ValueError("unknown integrator %r" % (settings.integrator,))
         # the stack only needs the tree's actual depth
         settings = dataclasses.replace(
             settings, stack_depth=min(settings.stack_depth,
                                       int(flat_bvh.max_depth) + 2))
         self.settings = settings
+        if base_scene is not None:
+            scene = {k: v for k, v in base_scene.items()
+                     if not k.startswith("lane_")}
+        else:
+            scene = to_device(
+                build_scene(flat_bvh, mat_arrays, envmap, texture, settings,
+                            env_const), self.device)
+        n_pixels = self.width * self.height
+        self.lane_chunk = int(lane_chunk or min(n_pixels, 1 << 23))
         self._lane_px, self._lane_py = lane_tables(self.width, self.height)
-        self.scene = to_device(
-            build_scene(flat_bvh, mat_arrays, envmap, texture, settings,
-                        env_const, self._lane_px, self._lane_py),
-            self.device)
+        # padded to whole chunks plus headroom for ShardedRenderer's
+        # rounded-up lane count, as the JAX Renderer pads them
+        n_pad = (-(-n_pixels // self.lane_chunk) * self.lane_chunk
+                 - n_pixels + 8192)
+        for k, v in (("lane_px", self._lane_px), ("lane_py", self._lane_py)):
+            scene[k] = torch.from_numpy(np.pad(v, (0, n_pad))).to(
+                self.device)
+        self.scene = scene
 
     def zeros_accum(self):
         return torch.zeros((self.width * self.height, 3), dtype=torch.float32,
@@ -237,18 +247,73 @@ class Renderer:
         """One progressive sample per pixel; frame_number starts at 1."""
         return self.render_frames(accum, camera, frame_number, 1)
 
+    def _render_chunk(self, scene, cam_vec, frame_hash, lane0, accum_chunk,
+                      integrate, stats):
+        """Render 1 spp of the bounce integrator `integrate` for the lanes
+        [lane0, lane0 + n) and add it to accum_chunk [n,3]."""
+        n = accum_chunk.shape[0]
+        device = accum_chunk.device
+        lane_ids = lane0 + torch.arange(n, dtype=torch.int64, device=device)
+        rng = RaySampler.init(frame_hash, lane_ids)
+        # lane -> pixel through the padded block-swizzle tables; pixel_y 0
+        # is the top of the image
+        pixel_x = scene["lane_px"][lane0:lane0 + n].to(torch.float32)
+        pixel_y = scene["lane_py"][lane0:lane0 + n].to(torch.float32)
+        rng, orig, raydir = generate_camera_rays(cam_vec, rng, pixel_x,
+                                                 pixel_y)
+        rng, radiance = integrate(scene, rng, orig, raydir, cam_vec[15],
+                                  stats)
+        return accum_chunk + radiance
+
+    def _render_frames_chunk(self, scene, cam_vec, frame0, lane0,
+                             accum_chunk, n_frames, with_stats):
+        """n_frames samples per lane of one chunk. Returns (accum, waves,
+        traced rays); waves counts bounces for the bounce integrator, and
+        the ray count is 0 without with_stats."""
+        if self.settings.integrator == "regen":
+            from .regen import make_regen_integrator
+            fn = make_regen_integrator(self.settings, self.width,
+                                       self.height, with_stats=with_stats)
+            out = fn(scene, cam_vec, frame0, lane0, accum_chunk, n_frames)
+            return out if with_stats else (out[0], out[1], 0.0)
+        from .wavefront import make_integrator
+        integrate = make_integrator(self.settings)
+        stats = {} if with_stats else None
+        acc = accum_chunk
+        for i in range(n_frames):
+            acc = self._render_chunk(scene, cam_vec, wang_hash(frame0 + i),
+                                     lane0, acc, integrate, stats)
+        if stats is None:
+            return acc, 0, 0.0
+        return acc, stats.get("bounces", 0), float(stats.get("rays", 0.0))
+
     def render_frames(self, accum, camera: RenderCamera, frame_start: int,
                       n_frames: int, with_stats=False):
         """Add n_frames samples per pixel (frames frame_start ..
         frame_start + n_frames - 1) to the lane-ordered accum and return the
-        new accum. with_stats=True returns (accum, waves, traced_rays)."""
-        from .regen import make_regen_integrator
-        fn = make_regen_integrator(self.settings, self.width, self.height,
-                                   with_stats=with_stats)
+        new accum, chunk by chunk of lane_chunk lanes. with_stats=True
+        returns (accum, waves, traced_rays): regen waves or bounces."""
         cam_vec = torch.as_tensor(camera.as_array(), device=self.device)
-        out = fn(self.scene, cam_vec, int(frame_start), 0, accum,
-                 int(n_frames))
-        return out if with_stats else out[0]
+        n = accum.shape[0]
+        chunk = self.lane_chunk
+        if n <= chunk:
+            spans, chunk = [(0, n)], n
+        else:
+            spans = [(l0, min(l0 + chunk, n)) for l0 in range(0, n, chunk)]
+        out, waves, rays = [], 0, 0.0
+        for lane0, lane1 in spans:
+            sl = accum[lane0:lane1]
+            pad = chunk - (lane1 - lane0)
+            if pad:
+                sl = torch.cat([sl, sl.new_zeros((pad, 3))])
+            res, w, r = self._render_frames_chunk(
+                self.scene, cam_vec, int(frame_start), lane0, sl,
+                int(n_frames), with_stats)
+            out.append(res[:lane1 - lane0] if pad else res)
+            waves += w
+            rays += r
+        acc = out[0] if len(out) == 1 else torch.cat(out)
+        return (acc, waves, rays) if with_stats else acc
 
     def accum_to_buffer(self, accum):
         """Un-swizzle the lane-ordered accumulation into an [H,W,3] buffer."""
@@ -263,3 +328,53 @@ class Renderer:
         """Tonemap the lane-ordered accumulation into [H,W,3] uint8."""
         from ..core.image import tonemap
         return tonemap(self.accum_to_buffer(accum), frame_count)
+
+
+def scene_parts_from_desc(desc: SceneDesc, base_dir="", cache_dir=None):
+    """Load (flat_bvh, materials, envmap, texture, settings) as the scene
+    description says: the pieces renderer_from_scene_desc assembles, for
+    callers that pick their own resolution."""
+    import os
+    from ..scene.objloader import load_obj
+    from ..scene.plyloader import load_ply
+    from ..scene.hdr import read_hdr
+    from ..scene.texture import load_texture
+    from ..accel.cache import load_or_build
+
+    path = os.path.join(base_dir, desc.scenefile)
+    if path.endswith(".obj"):
+        mesh = load_obj(path, desc.mat_id_map)
+    elif path.endswith(".ply"):
+        mesh = load_ply(path)
+    else:
+        raise ValueError("unsupported scene file %r" % desc.scenefile)
+    fb = load_or_build(mesh, cache_dir=cache_dir)
+    envmap = None
+    if desc.HDRmapname and desc.use_envmap:
+        envmap = read_hdr(os.path.join(base_dir, desc.HDRmapname))
+    texture = None
+    if desc.textureFile:
+        texture = load_texture(os.path.join(base_dir, desc.textureFile))
+    settings = RenderSettings(
+        bounce_min=desc.bounce_min,
+        bounce_max=desc.bounce_max,
+        use_envmap=envmap is not None,
+        use_texture=texture is not None,
+        has_media=any(m.medium is not None for m in desc.materials),
+        has_bssrdf=any(m.refltype == MAT_SUBSURFACE for m in desc.materials),
+        use_distant_light=desc.use_distant_light,
+        distant_light_L=tuple(desc.distant_light_L),
+        distant_light_dir=tuple(desc.distant_light_dir),
+    )
+    return fb, desc.materials, envmap, texture, settings
+
+
+def renderer_from_scene_desc(desc: SceneDesc, base_dir="", cache_dir=None,
+                             *, device):
+    """A Renderer on `device` for a scene description: mesh, BVH (built or
+    read from cache_dir), HDR environment and texture."""
+    fb, mats, envmap, texture, settings = scene_parts_from_desc(
+        desc, base_dir=base_dir, cache_dir=cache_dir)
+    return Renderer(fb, mats, envmap=envmap, texture=texture,
+                    width=desc.width, height=desc.height, settings=settings,
+                    device=device)

@@ -3,8 +3,7 @@
 
 Every stage is plain tensor code over lane columns. What changed from the
 JAX version: `gather_material` is a row gather (the one-hot matmul was a
-TPU choice), and the classic bounce integrator (`make_integrator`) is not
-ported yet (ROADMAP queue A).
+TPU choice). `make_integrator` is the classic bounce integrator.
 """
 from __future__ import annotations
 
@@ -13,12 +12,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.vecmath import PI, normalize, reflect, barycentric
+from ..core.vecmath import (
+    PI, INV_PI, RAY_MIN, RAY_MAX, normalize, reflect, barycentric, dot,
+)
 from ..core.rng import RaySampler
 from ..scene.config import (
-    MAT_EMIT, MAT_GLASS, MAT_REFL, MAT_DIFF_REFL, MAT_FRESNEL, MAT_NULL,
-    MAT_SUBSURFACE,
+    MAT_EMIT, MAT_DIFF, MAT_GLASS, MAT_REFL, MAT_DIFF_REFL, MAT_FRESNEL,
+    MAT_NULL, MAT_SUBSURFACE,
 )
+from ..materials.fresnel import fresnel_dielectric, fresnel_moment_1
 from ..scene.texture import (
     sample_texture_quad, sample_envmap_quad, sample_envmap_quad_pdf,
     _uv_from_dir, _corner_pdf, _bilinear_rows,
@@ -27,8 +29,10 @@ from ..materials.bsdf import (
     lambertian_sample, specular_glass_sample, ggx_reflection_sample,
     rough_glass_sample, microfacet_interface_sample, fresnel_blend_sample,
 )
-from .envsample import power_heuristic
+from .envsample import power_heuristic, sample_env
 from .traverse import intersect_scene
+from .medium import medium_interaction
+from .bssrdf_shade import bssrdf_scatter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,15 +57,19 @@ class RenderSettings:
     # NEE draws restricted to the top-k brightest texels (<= 0 disables)
     env_nee_topk: int = 16384
     # "regen" = path regeneration (tracer/regen.py); "bounce" = the classic
-    # bounce loop, not ported yet
+    # bounce loop (make_integrator)
     integrator: str = "regen"
-    # pool order: "compact" (ported) or "inplace" (not ported yet)
+    # regen pool order: "compact" moves the survivors to the front every
+    # wave; "inplace" respawns dead lanes where they died
     regen_order: str = "compact"
-    # compact permute: "gather" (ported) or "sort" (not ported yet)
+    # compact permute: "gather" = one row gather of the packed pool,
+    # "sort" = the vector state carried as per-channel planes, each moved
+    # by the same stable sort order
     regen_permute: str = "gather"
     # regen pool width cap in lanes; <= 0 means image-sized
     pool_lanes: int = 1 << 20
-    # profiling hook of the JAX bench; not ported ("" = off)
+    # profiling hook of the JAX bench; not ported ("" = off): it waits for
+    # the port's profiler tool
     dup_stage: str = ""
     # how radiance reaches the image: "ring"/"deferred" bank it on the path
     # and add it at the path's death, "wave" adds every wave (regen.py)
@@ -369,3 +377,210 @@ def shade(scene, settings, rng, raydir, n, nl, into, mat, objcol):
         "u": (u1, u2, u3, u4, u5, u6),
     }
     return rng, next_dir, mask_mul, offset, terminate, bounce_inc, aux
+
+
+
+def distant_light(settings: RenderSettings, device):
+    """(unit direction, radiance) [3] f32 tensors of the distant light, or
+    None when it is off."""
+    if not settings.use_distant_light:
+        return None
+    f32 = dict(dtype=torch.float32, device=device)
+    return (normalize(torch.tensor(settings.distant_light_dir, **f32)),
+            torch.tensor(settings.distant_light_L, **f32))
+
+
+def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
+               medium_id, surf, hit, tex, radiance, env_rotation, light,
+               count_rays=False):
+    """The surface half of a segment, shared by both integrators: material,
+    emission, the BSDF draw, the BSSRDF probe loop, env NEE with MIS, the
+    distant light, the bounce budget and medium tracking, on the lanes
+    `surf` (live lanes whose ray hit a surface).
+
+    hit = fetch_attributes(...) + (hitpoint,) of the segment's trace; tex
+    the texture radiance at the hit, or None to fetch it here; radiance
+    [N,3] the running sum this segment's terms are added to, in the
+    reference's order; light = distant_light(...). Returns (rng, orig,
+    raydir, mask, bsdf_pdf, lbn, medium_id, radiance, ended, n_shadow):
+    ended marks the surface lanes whose path stops here (an emitter), and
+    n_shadow is the count of shadow rays traced (a device scalar) with
+    count_rays, else 0."""
+    hit_uv, smooth_n, mat_id, tri_n, hitpoint = hit
+    mat = gather_material(scene, mat_id)
+    use_sn = mat["useNormal"] != 0
+    n = normalize(torch.where(use_sn[:, None], smooth_n, tri_n))
+    objcol = mat["objcol"]
+    if settings.use_texture:
+        if tex is None:
+            tex = texture_radiance(scene, hit_uv)
+        objcol = torch.where((mat["useTexture"] != 0)[:, None], tex, objcol)
+    into = dot(n, raydir) < 0.0
+    nl = torch.where(into[:, None], n, -n)
+    radiance = radiance + torch.where(surf[:, None], mask * mat["emit"], 0.0)
+
+    rng, next_dir, mask_mul, offset, term, binc, aux = shade(
+        scene, settings, rng, raydir, n, nl, into, mat, objcol)
+    new_orig = hitpoint + nl * (offset * RAY_MIN)[:, None]
+    if settings.has_bssrdf:
+        ss_lanes = surf & aux["ss_refract"]
+        (rng, bs_orig, bs_dir, bs_mul, bs_ok, bs_is_mul,
+         bs_normal) = bssrdf_scatter(
+            scene, settings, rng, hitpoint, aux["ss_normal"], mat, mat_id,
+            objcol, ss_lanes)
+        use_bs = ss_lanes & bs_ok
+        new_orig = torch.where(use_bs[:, None], bs_orig, new_orig)
+        next_dir = torch.where(use_bs[:, None], bs_dir, next_dir)
+        mask_mul = torch.where(use_bs[:, None], bs_mul, mask_mul)
+    mask_prev = mask
+    mask = torch.where(surf[:, None], mask * mask_mul, mask)
+    orig = torch.where(surf[:, None], new_orig, orig)
+    raydir = torch.where(surf[:, None], next_dir, raydir)
+
+    n_shadow = 0
+    if settings.use_envmap and settings.env_importance_sampling:
+        rng, (e1, e2) = RaySampler.next_n(rng, 2)
+        d_env, pdf_env, L_env = sample_env(scene, e1, e2, env_rotation)
+        cos_e = dot(d_env, nl)
+        diff_lane = surf & (mat["refltype"] == MAT_DIFF)
+        cand = diff_lane & (cos_e > 0.0) & (pdf_env > 1e-12)
+        if count_rays:
+            n_shadow = n_shadow + cand.sum()
+        _s_slot, s_t = trace_rays(scene, settings, orig, d_env, RAY_MIN,
+                                  RAY_MAX, anyhit=True, active=cand)
+        lit = cand & (s_t > 1e10)
+        f = mat["kd"][:, None] * objcol * INV_PI
+        pdf_b = torch.clamp_min(cos_e, 0.0) * INV_PI
+        w = power_heuristic(pdf_env, pdf_b)
+        scale = cos_e / torch.clamp_min(pdf_env, 1e-12) * w
+        radiance = radiance + torch.where(
+            lit[:, None], mask_prev * f * scale[:, None] * L_env, 0.0)
+        # the pdf of the new direction, recorded on diffuse lanes only
+        cos_n = torch.clamp_min(dot(raydir, nl), 0.0)
+        bsdf_pdf = torch.where(surf & diff_lane, cos_n * INV_PI,
+                               torch.where(surf, -1.0, bsdf_pdf))
+
+    if light is not None:
+        ddis, ldis = light
+        d_light = ddis.expand(raydir.shape)
+        diff_lane = surf & (mat["refltype"] == MAT_DIFF)
+        cos_th = dot(d_light, nl)
+        cand = diff_lane & (cos_th >= 0.0)
+        cand_all = cand
+        if settings.has_bssrdf:
+            # BSSRDF exit points also sample the distant light
+            # (src/renderkernel.cu:815-841)
+            cos_b = dot(d_light, normalize(bs_normal))
+            cand_b = use_bs & (cos_b >= 0.0)
+            cand_all = cand | cand_b
+        if count_rays:
+            n_shadow = n_shadow + cand_all.sum()
+        _s_slot, s_t = trace_rays(scene, settings, orig, d_light.contiguous(),
+                                  RAY_MIN, RAY_MAX, anyhit=True,
+                                  active=cand_all)
+        lit = cand & (s_t > 1e10)
+        pdf_s = torch.abs(cos_th) * INV_PI
+        w = (pdf_s + 1.0) / (pdf_s * pdf_s + 1.0)
+        # mask, not mask_prev: the reference weighs this term with the mask
+        # after the surface's multiply (quirk kept)
+        radiance = radiance + torch.where(
+            lit[:, None], mask * (objcol * INV_PI) * ldis * w[:, None], 0.0)
+        if settings.has_bssrdf:
+            lit_b = cand_b & (s_t > 1e10)
+            eta_t = mat["etaT"]
+            surface_f = ((1.0 - fresnel_dielectric(torch.abs(cos_b), 1.0,
+                                                   eta_t))
+                         / (1.0 - 2.0 * fresnel_moment_1(1.0 / eta_t))) \
+                * INV_PI
+            pdf_b2 = torch.abs(cos_b) * INV_PI
+            w_b = (pdf_b2 + 1.0) / (pdf_b2 * pdf_b2 + 1.0)
+            radiance = radiance + torch.where(
+                lit_b[:, None],
+                mask_prev * bs_is_mul * (surface_f * w_b)[:, None] * ldis,
+                0.0)
+
+    lbn = torch.where(surf, torch.clamp_max(lbn + binc, settings.bounce_max),
+                      lbn)
+    if settings.has_media:
+        # entering / leaving a refractive interface with a medium
+        refr = surf & aux["glass_refract"]
+        medium_id = torch.where(refr & into & (mat["has_medium"] != 0),
+                                mat_id, medium_id)
+        medium_id = torch.where(refr & ~into, -1, medium_id)
+    return (rng, orig, raydir, mask, bsdf_pdf, lbn, medium_id, radiance,
+            surf & term, n_shadow)
+
+
+def make_integrator(settings: RenderSettings):
+    """The classic bounce integrator (JAX `wavefront.make_integrator`):
+    every bounce runs over all N lanes with an `active` mask until no lane
+    is active or bounce_max is reached, one host read a bounce (the active
+    count). The environment is fetched once after the loop, for the
+    direction and throughput each lane left the scene with.
+
+    Returns integrate(scene, rng, orig, raydir, env_rotation, stats=None)
+    -> (rng, radiance [N,3]). A `stats` dict, when given, gains the
+    bounces run ("bounces") and the rays traced, extension and shadow
+    ("rays", a device scalar)."""
+
+    def integrate(scene, rng, orig, raydir, env_rotation, stats=None):
+        N = orig.shape[0]
+        device = orig.device
+        f32 = dict(dtype=torch.float32, device=device)
+        mask = torch.ones((N, 3), **f32)
+        accum = torch.zeros((N, 3), **f32)
+        active = torch.ones((N,), dtype=torch.bool, device=device)
+        lbn = torch.full((N,), settings.bounce_min, dtype=torch.int32,
+                         device=device)
+        medium_id = torch.full((N,), -1, dtype=torch.int32, device=device)
+        miss_dir = torch.zeros((N, 3), **f32)
+        miss_mask = torch.zeros((N, 3), **f32)
+        miss_bpdf = torch.full((N,), -1.0, **f32)
+        bsdf_pdf = torch.full((N,), -1.0, **f32)
+        rays = torch.zeros((), dtype=torch.float64, device=device)
+        light = distant_light(settings, device)
+        bounce = 0
+        while bounce < settings.bounce_max:
+            n_active = int(active.sum())        # the bounce's one host read
+            if n_active == 0:
+                break
+            rays += n_active
+            hit_slot, hit_t = trace_rays(scene, settings, orig, raydir,
+                                         RAY_MIN, RAY_MAX, anyhit=False,
+                                         active=active)
+            surf = active
+            if settings.has_media:
+                rng, orig, raydir, mask, sampled_medium = medium_interaction(
+                    scene, rng, orig, raydir, mask, hit_t, medium_id, active)
+                lbn = torch.where(
+                    sampled_medium,
+                    torch.clamp_max(lbn + 1, settings.bounce_max), lbn)
+                surf = active & ~sampled_medium
+            # the environment miss, deferred: record the direction, the
+            # throughput and the pdf of the last diffuse draw
+            miss = surf & (hit_t > 1e10)
+            miss_dir = torch.where(miss[:, None], raydir, miss_dir)
+            miss_mask = torch.where(miss[:, None], mask, miss_mask)
+            miss_bpdf = torch.where(miss, bsdf_pdf, miss_bpdf)
+            active = active & ~miss
+            surf = surf & ~miss
+
+            hitpoint = orig + raydir * hit_t[:, None]
+            hit = fetch_attributes(scene, hit_slot, hitpoint) + (hitpoint,)
+            (rng, orig, raydir, mask, bsdf_pdf, lbn, medium_id, accum, ended,
+             n_shadow) = shade_hits(
+                scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
+                medium_id, surf, hit, None, accum, env_rotation, light,
+                count_rays=stats is not None)
+            rays += n_shadow
+            bounce += 1
+            active = active & ~ended & (bounce < lbn)
+
+        if stats is not None:
+            stats["bounces"] = stats.get("bounces", 0) + bounce
+            stats["rays"] = stats.get("rays", 0) + rays
+        env = env_miss_weighted(scene, settings, miss_dir, miss_bpdf,
+                                env_rotation)
+        return rng, accum + miss_mask * env
+
+    return integrate

@@ -1,5 +1,8 @@
-"""Kernel timing on the card."""
+"""Timing: kernel times on the card (`cuda_ms`) and wall-clock telemetry
+for the CLI (`Timer`, `RateMeter`, as the JAX package's utils/timing.py)."""
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -17,3 +20,39 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+class Timer:
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.t0 = time.perf_counter()
+
+    def elapsed(self):
+        return time.perf_counter() - self.t0
+
+
+class RateMeter:
+    """Counts frames and camera samples and prints 'time, frames, ms/frame,
+    FPS, Mpaths/s' at most once per interval (the reference's stats line,
+    src/main.cpp:204-209, plus paths per second; bounce and shadow rays are
+    not counted here)."""
+
+    def __init__(self, interval=1.0):
+        self.interval = interval
+        self.timer = Timer()
+        self.last_report = 0.0
+        self.frames = 0
+        self.rays = 0
+
+    def tick(self, rays_this_frame, out=print):
+        self.frames += 1
+        self.rays += int(rays_this_frame)
+        el = self.timer.elapsed()
+        if el - self.last_report >= self.interval:
+            fps = self.frames / el
+            out("time %.1fs, frames %d, %.2f ms/frame, %.1f FPS, %.2f Mpaths/s"
+                % (el, self.frames, 1000.0 * el / self.frames, fps,
+                   self.rays / el / 1e6))
+            self.last_report = el

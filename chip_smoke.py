@@ -75,9 +75,29 @@ back to the CPU. Phases, each fatal on failure:
    (8e) the CLI, python -m tpu_pathtracer_torch.tools.render, renders the
    demo at 256x256 to a PPM with a checkpoint at 8 spp, then resumes it to
    16 spp;
+9. the viewer, the profiler and the last user tools: (9a) a scripted
+   session of tools/interactive.py's ViewerSession at a 1920x1080 window
+   on an injected clock (every key binding once, a left drag, a wheel step
+   and space as 960x540 previews, then 4 converging steps of 4 spp), with
+   the launch counts set to 0 before and read after; the image after the
+   last reset held to Renderer.render_frames of the same camera and frames
+   under the gate statistics, and the device tonemap to the host tonemap
+   of the same accumulation within one uint8 step; (9b)
+   tools/probe_viewer.py at 1080p (previews at div 2, 4, 8, the 1-spp
+   frame, batch 4); (9c) tools/showcase_1080p.py at 8 spp to a PPM; (9d)
+   tools/gallery.py, every variant at 128x128, 4 spp, to PPMs; (9e)
+   tools/profile_frame.py's marginal profile (op table, category rollup,
+   device busy time, and the idle share of the frame timed without the
+   profiler) of TestObj regen, the sss regen and the TestObj bounce
+   frames at 1024x1024, frames (1, 3); (9f) the price of each of the ten
+   dup_stage stages on TestObj at 1024x1024: its marginal over frames
+   (1, 3) (2 spp) minus the undoubled one, the sets in turns (none, each
+   stage, each stage backwards, none), then every doubled image of 3 spp
+   held to the undoubled one bit for bit under torch's deterministic
+   algorithms;
 6. print the kernels line (rows 1-3 also carry their launches on the
-   bounce path, "launches_bounce"), the card line, and the result line
-   (last).
+   bounce path, "launches_bounce", rows 1-2 on the viewer path,
+   "launches_viewer"), the card line, and the result line (last).
 
 Bounds. A traversal kernel's bound is the larger of its bytes (active
 rays, the table once, mask and outputs) over 3.35 TB/s and its operations over the
@@ -106,6 +126,9 @@ N_BRUTE = 4096
 N_TIME = 1 << 20
 P_DMA = 1 << 20
 CLI_SIZE = 256             # phase 8e's image
+VIEWER_H = 1080            # phase 9's window height (16:9)
+SHOWCASE_ENV = 2048        # phase 9c's sky width
+GALLERY_SIZE = 128         # phase 9d's images
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM FP32 outside the tensor cores
 OPS_PER_STEP = 39          # FP32 arithmetic of a triangle step (node: 48)
@@ -647,6 +670,216 @@ def phase8(np, torch, ops, dev, fb, mats, envmap, texture, sss_parts, rc,
     return rec
 
 
+def viewer_script(keys, env_keys):
+    """Phase 9a's steps: [(events, seconds the clock moves after the
+    step)]: every binding once, a left drag, a wheel step and space, each
+    inside the preview window, then 4 converging steps."""
+    from tpu_pathtracer_torch.tools.interactive import MOVING_S
+    inside = MOVING_S / 5
+    steps = [([k], inside) for k in list(keys) + list(env_keys)
+             + [",", "."]]
+    steps += [([("MOUSE", "press", 0, False, 40, 20),
+                ("MOUSE", "drag", 0, False, 44, 22)], inside),
+              ([("MOUSE", "wheel", 1, False, 44, 22)], inside),
+              ([" "], 2 * MOVING_S)]
+    return steps + [([], 0.5)] * 4
+
+
+def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
+    """Phase 9: the viewer (9a) and probe_viewer (9b) at a 1080p window,
+    the showcase (9c), the gallery (9d), the profiles (9e) and the
+    dup_stage prices (9f), the last two at W x W. parts / sss_parts:
+    (flat_bvh, materials, envmap, texture) of TestObj and the sss scene.
+    Returns the record."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from tpu_pathtracer_torch.core.image import read_ppm
+    from tpu_pathtracer_torch.scene import demo
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.tracer.regen import DUP_STAGES
+    from tpu_pathtracer_torch.tools import (
+        interactive, probe_viewer, showcase_1080p, gallery, profile_frame)
+    from tpu_pathtracer_torch.tools.render import _save_image
+    fb, mats, envmap, texture = parts
+    rec = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p9_")
+    try:
+        # ---- 9a. a scripted viewer session at a 1920x1080 window ----
+        VW, VH, batch = VIEWER_H * 16 // 9, VIEWER_H, 4
+        r = Renderer(fb, mats, envmap=envmap, texture=texture, width=VW,
+                     height=VH, device=dev)
+        lo = interactive.preview_renderer(r, parts, 2)
+        assert lo is not None and (lo.width, lo.height) == (VW // 2, VH // 2)
+        clock = [0.0]
+        sess = interactive.ViewerSession(
+            r, demo.default_camera(VW, VH), lo, batch=batch,
+            cam_path=os.path.join(tmp, "viewer.cam"), out_dir=tmp,
+            clock=lambda: clock[0])
+        sess.step([])                               # warm-up (full, 4 spp)
+        sess.step([" "])                            # and a preview
+        torch.cuda.synchronize()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        times = {"preview": [], "full": []}
+        for events, dt in viewer_script(interactive.KEYS,
+                                        interactive.ENV_KEYS):
+            t0 = time.perf_counter()
+            img = sess.step(events)
+            times[sess.kind].append((time.perf_counter() - t0) * 1e3)
+            assert img.shape == (VH, VW, 3) and img.dtype == np.uint8
+            clock[0] += dt
+        viewer_launches = dict(ops.LAUNCHES)
+        assert sess.step(["q"]) is None
+        for k in ("traverse_closest", "traverse_anyhit"):
+            assert viewer_launches[k] > 0, "the viewer never launched " + k
+        assert sess.kind == "full" and sess.frame == 4 * batch, sess.frame
+        assert len(times["preview"]) == len(interactive.KEYS) + len(
+            interactive.ENV_KEYS) + 5, times
+        want = r.render_frames(r.zeros_accum(), sess.camera, 1, sess.frame)
+        v_gate = gate(np, r.accum_to_buffer(sess.accum) / sess.frame,
+                      r.accum_to_buffer(want) / sess.frame,
+                      "viewer vs render")
+        dev_img = r.accum_to_image(sess.accum, sess.frame)
+        host_img = r.accum_to_image(sess.accum.cpu().numpy(), sess.frame)
+        d = np.abs(dev_img.astype(np.int32) - host_img.astype(np.int32))
+        assert int(d.max()) <= 1, "device tonemap off by %d" % d.max()
+        t0 = time.perf_counter()
+        sess.close()
+        close_s = time.perf_counter() - t0
+        assert read_ppm(os.path.join(tmp, "output500.ppm")).shape == \
+            (VH, VW, 3)
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        rec["viewer"] = {
+            "window": [VW, VH], "preview": [lo.width, lo.height],
+            "batch": batch, "step_ms": times, "median_step_ms": med,
+            "launches": viewer_launches, "gate_vs_render": v_gate,
+            "tonemap_max_step": int(d.max()),
+            "tonemap_pixels_differing": int((d.max(axis=2) > 0).sum()),
+            "output500_s": close_s}
+        log("  9a viewer %dx%d: %d preview steps (%dx%d), median %.1f ms; "
+            "%d full steps of %d spp, median %.1f ms; launches %s; device "
+            "tonemap = host within %d step, %d pixels differ; output500.ppm "
+            "in %.1f s" % (VW, VH, len(times["preview"]), lo.width,
+                           lo.height, med["preview"], len(times["full"]),
+                           batch, med["full"],
+                           {k: v for k, v in viewer_launches.items() if v},
+                           d.max(), rec["viewer"]["tonemap_pixels_differing"],
+                           close_s))
+        del sess, lo, r, want
+        torch.cuda.empty_cache()
+
+        # ---- 9b. probe_viewer at 1080p ----
+        pv = probe_viewer.probe(parts, VIEWER_H, dev, reps=3)
+        # the same measure of a W x W 1-spp frame, for the 1080p ratio
+        sq = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                      height=W, device=dev)
+        sq_rc = demo.default_camera(W, W).build_render_camera()
+        pv["square_ms"] = probe_viewer.median_ms(
+            lambda: sq.accum_to_image(sq.render_frames(
+                sq.zeros_accum(), sq_rc, 1, 1), 1), 5)
+        pv["full_over_square"] = pv["full_ms"] / pv["square_ms"]
+        del sq
+        for line in probe_viewer.report(pv):
+            log("  9b " + line)
+        log("  9b %dx%d 1-spp frame %.1f ms: the %dx%d frame is %.2fx it"
+            % (W, W, pv["square_ms"], pv["width"], pv["height"],
+               pv["full_over_square"]))
+        rec["probe_viewer"] = pv
+
+        # ---- 9c. the 1080p showcase, 8 spp, to a PPM ----
+        out = os.path.join(tmp, "showcase.ppm")
+        sc = showcase_1080p.render_showcase(VW, VH, SHOWCASE_ENV, 8, out,
+                                            cache, dev)
+        img = read_ppm(out)
+        assert img.shape == (VH, VW, 3) and np.isfinite(img).all()
+        assert img.mean() > 0.05, "the showcase is black"
+        sc["ppm_mean"] = float(img.mean())
+        rec["showcase"] = sc
+        log("  9c showcase %dx%d: env io %.2f s, renderer build %.2f s, "
+            "first frame %.3f s, %d more spp %.2f s (%.1f ms/frame), PPM "
+            "mean %.3f" % (VW, VH, sc["env_io_s"], sc["build_s"],
+                           sc["first_frame_s"], sc["spp"] - 1, sc["rest_s"],
+                           sc["rest_ms_per_frame"], sc["ppm_mean"]))
+        torch.cuda.empty_cache()
+
+        # ---- 9d. the gallery, every variant, 128x128, 4 spp ----
+        gparts = gallery.scene_parts(cache)
+        rec["gallery"] = {}
+        for name, gmats in gallery.variants().items():
+            t0 = time.perf_counter()
+            gr, acc = gallery.render_variant(name, gmats, GALLERY_SIZE, 4,
+                                             gparts, dev)
+            path = os.path.join(tmp, name + ".ppm")
+            _save_image(path, gr, acc, 4)
+            gimg = read_ppm(path)
+            assert gimg.shape == (GALLERY_SIZE, GALLERY_SIZE, 3)
+            assert np.isfinite(gimg).all(), name
+            assert np.isfinite(acc.cpu().numpy()).all(), name
+            assert gimg.mean() > 0.02, (name, "black")
+            rec["gallery"][name] = {"s": time.perf_counter() - t0,
+                                    "ppm_mean": float(gimg.mean())}
+        log("  9d gallery %dx%d x 4 spp: " % (GALLERY_SIZE, GALLERY_SIZE)
+            + ", ".join(
+            "%s %.2f s" % (k, v["s"]) for k, v in rec["gallery"].items()))
+
+        # ---- 9e. the marginal profiles ----
+        rc = demo.default_camera(W, W).build_render_camera()
+        rec["profiles"] = {}
+        fb_s, mats_s, env_s, tex_s = sss_parts
+        for tag, pparts, integrator, frames in (
+                ("testobj_regen", parts, "regen", (1, 3)),
+                ("sss_regen", sss_parts, "regen", (1, 3)),
+                ("testobj_bounce", parts, "bounce", (1, 3))):
+            pr = Renderer(pparts[0], pparts[1], envmap=pparts[2],
+                          texture=pparts[3], width=W, height=W, device=dev)
+            pr.settings = dataclasses.replace(pr.settings,
+                                              integrator=integrator)
+            t0 = time.perf_counter()
+            prof = profile_frame.profile(pr, rc, frames)
+            lines = profile_frame.report(prof, top=10)
+            for line in lines:
+                log("  9e %s %s" % (tag, line))
+            lo_s, hi_s, marg = prof["spans"]
+            assert lo_s["events"] > 0 and hi_s["events"] > 0, \
+                (tag, "the profile holds no device event")
+            ops_top = sorted(prof["ops"].items(), key=lambda kv: -kv[1])
+            rec["profiles"][tag] = {
+                "frames": list(frames), "rollup": prof["rollup"],
+                "spans": prof["spans"],
+                "op_sum_ms": sum(prof["ops"].values()),
+                "top_ops": [[k, v, prof["meta"][k][1]]
+                            for k, v in ops_top[:40]],
+                "unlinked_device_ops_ms": sum(
+                    v for k, v in prof["ops"].items()
+                    if not prof["meta"][k][1]
+                    and "traverse_kernel" not in k),
+                "s": time.perf_counter() - t0}
+            del pr
+            torch.cuda.empty_cache()
+
+        # ---- 9f. the ten dup_stage prices ----
+        pr = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                      height=W, device=dev)
+        t0 = time.perf_counter()
+        prices = profile_frame.price_stages(pr, rc, DUP_STAGES, (1, 3))
+        for stage, p in prices.items():
+            log("  9f dup %-12s price %+8.2f ms/frame (with %s, without %s "
+                "ms); bit for bit: %s"
+                % (stage, p["price_ms"],
+                   "/".join("%.1f" % x for x in p["dup_ms"]),
+                   "/".join("%.1f" % x for x in p["none_ms"]),
+                   p["bit_equal"]))
+            assert p["bit_equal"], (stage, "dup_stage moved the image")
+        rec["dup_prices"] = {"frames": [1, 3], "stages": prices,
+                             "s": time.perf_counter() - t0}
+        del pr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
 DMA_CASES = (("gather_wide", 128, "perm", 1, "gather"),
              ("gather_flat", 0, "perm", 1, "gather"),
              ("gather_batch8", 128, "run8", 8, "gather"),
@@ -1143,6 +1376,13 @@ def main():
                               big_scenes["organic_sss"], rc, cache, W)
     report["phase8"]["s"] = time.time() - t0
 
+    # ---- 9. the viewer, the profiler, the last user tools ----
+    t0 = time.time()
+    report["phase9"] = phase9(np, torch, ops, dev,
+                              (fb, mats, envmap, texture),
+                              big_scenes["organic_sss"], cache, W)
+    report["phase9"]["s"] = time.time() - t0
+
     assert "jax" not in sys.modules, "the port imported jax"
     assert not [m for m in sys.modules if m == "tpu_pathtracer"
                 or m.startswith("tpu_pathtracer.")], \
@@ -1219,6 +1459,12 @@ def main():
         if k["name"] in bounce_runs:
             k["launches_bounce"] = bounce_runs[k["name"]]
             assert k["launches_bounce"] > 0, (k["name"], "bounce")
+    # rows 1-2 on the viewer path (phase 9a), counted there
+    viewer_runs = report["phase9"]["viewer"]["launches"]
+    for k in kernels:
+        if k["name"] in ("traverse_closest", "traverse_anyhit"):
+            k["launches_viewer"] = viewer_runs[k["name"]]
+            assert k["launches_viewer"] > 0, (k["name"], "viewer")
     for k in kernels:
         assert k["launches"] > 0, "%s was launched on no path" % k["name"]
     dma_src = "tpu_pathtracer_torch/csrc/dma_rows.cu"

@@ -1,5 +1,7 @@
 """The CUDA kernels (traversal, step-counting traversal, row gather and
-scatter) against their plain PyTorch versions, on the card.
+scatter) against their plain PyTorch versions, on the card, and the render
+paths that launch them (media, BSSRDF, bounce, chunks and shards, the regen
+orders, the dup_stage hook, the device tonemap and the viewer's session).
 
 These tests need an NVIDIA GPU and nvcc; they skip elsewhere. The file
 imports no jax, so it also runs where jax is not installed:
@@ -573,3 +575,88 @@ def test_regen_orders_on_card(device, kw):
         assert torch.equal(a, b)
     else:
         _gate(r.accum_to_buffer(b), r.accum_to_buffer(a), "inplace")
+
+
+def _regen_renderer(dev, W):
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    fb, mats, envmap, texture = demo.testobj_scene(cache_dir=None)
+    return Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                    height=W, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [1, 6])
+def test_device_tonemap_on_card_matches_the_host_path(device, frames):
+    """Renderer.accum_to_image of a CUDA tensor tonemaps on the card and
+    reads back uint8: at most one step from the host f64 path, at least
+    99.9% of the pixels equal."""
+    W = 64
+    r = _regen_renderer(device, W)
+    g = np.random.default_rng(frames)
+    acc = (g.random((W * W, 3)) * 1.3 * frames).astype(np.float32)
+    dev_img = r.accum_to_image(torch.from_numpy(acc).to(device), frames)
+    host = r.accum_to_image(acc, frames)
+    assert dev_img.dtype == np.uint8 and dev_img.shape == (W, W, 3)
+    d = np.abs(dev_img.astype(np.int32) - host.astype(np.int32))
+    assert d.max() <= 1 and (d == 0).mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_dup_stages_keep_the_image_bits_on_card(device):
+    """Every dup_stage on the card gives the undoubled image bit for bit
+    under torch's deterministic algorithms (index_add_ in index order)."""
+    import dataclasses
+    from tpu_pathtracer_torch.tracer.regen import DUP_STAGES
+    W = 64
+    rc = demo.default_camera(W, W).build_render_camera()
+    r = _regen_renderer(device, W)
+    base = r.settings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want = r.render_frames(r.zeros_accum(), rc, 1, 2)
+        for stage in DUP_STAGES:
+            r.settings = dataclasses.replace(base, dup_stage=stage)
+            got = r.render_frames(r.zeros_accum(), rc, 1, 2)
+            assert torch.equal(got, want), stage
+    finally:
+        torch.use_deterministic_algorithms(False)
+        r.settings = base
+
+
+@pytest.mark.cuda
+def test_viewer_session_on_card(device, tmp_path):
+    """A scripted viewer session at 64x64 on the card: the previews and the
+    converging steps are Renderer.render_frames of the same cameras (bit
+    for bit under the deterministic algorithms), launching both traversal
+    kernels."""
+    from tpu_pathtracer_torch.tools import interactive as viewer
+    W = 64
+    parts = demo.testobj_scene(cache_dir=None)
+    r = _regen_renderer(device, W)
+    lo = viewer.preview_renderer(r, parts, 2)
+    t = [0.0]
+    s = viewer.ViewerSession(r, demo.default_camera(W, W), lo, batch=2,
+                             cam_path=str(tmp_path / "v.cam"),
+                             out_dir=str(tmp_path), clock=lambda: t[0])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        before = dict(ops.LAUNCHES)
+        img = s.step(["LEFT"])
+        assert s.kind == "preview"
+        want = lo.accum_to_image(
+            lo.render_frames(lo.zeros_accum(), s.camera, 1, 1), 1)
+        np.testing.assert_array_equal(img, want.repeat(2, 0).repeat(2, 1))
+        t[0] = 1.0
+        acc = r.zeros_accum()
+        for _ in range(2):
+            img = s.step([])
+            assert s.kind == "full"
+            acc = r.render_frames(acc, s.camera, s.frame - 1, 2)
+            np.testing.assert_array_equal(img,
+                                          r.accum_to_image(acc, s.frame))
+        for k in ("traverse_closest", "traverse_anyhit"):
+            assert ops.LAUNCHES[k] > before[k], k
+    finally:
+        torch.use_deterministic_algorithms(False)
+    s.close()
+    assert (tmp_path / "output500.ppm").exists()

@@ -5,6 +5,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "tpu_pathtracer_torch")
@@ -36,7 +37,9 @@ def test_port_has_the_slice_modules():
               "bssrdf.tabulate", "bssrdf.sample", "media", "tracer.medium",
               "tracer.bssrdf_shade", "parallel", "parallel.sharding",
               "scene.hdr", "scene.objloader", "utils.timing",
-              "tools.render"):
+              "tools.render", "utils.profiling", "tools.interactive",
+              "tools.profile_frame", "tools.probe_viewer",
+              "tools.showcase_1080p", "tools.gallery", "tools.sweep_frame"):
         assert "tpu_pathtracer_torch." + m in mods, m
 
 
@@ -89,3 +92,17 @@ def test_no_jax_import_statement(path):
                 s = line.strip()
                 assert not (s.startswith("import jax")
                             or s.startswith("from jax")), (f, line)
+
+
+@pytest.mark.parametrize("tool,args", [
+    ("render", []), ("interactive", []), ("profile_frame", []),
+    ("probe_viewer", []), ("showcase_1080p", []), ("gallery", []),
+    ("sweep_frame", [""])])
+def test_tool_defaults_to_the_card(tool, args, monkeypatch):
+    """Every CLI tool of the port runs on --device cuda unless told
+    otherwise, and without a card it stops instead of falling back."""
+    import importlib
+    mod = importlib.import_module("tpu_pathtracer_torch.tools." + tool)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        mod.main(args)

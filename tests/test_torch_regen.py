@@ -128,7 +128,7 @@ def test_wavefront_traversal_setting_gives_the_same_image():
     (dict(regen_permute="sort", regen_order="inplace"), ValueError),
     (dict(scatter_mode="rings"), ValueError),
     (dict(regen_order="in_place"), ValueError),
-    (dict(dup_stage="shade"), NotImplementedError),
+    (dict(dup_stage="shde"), ValueError),
 ])
 def test_regen_settings_raise(kw, exc):
     with pytest.raises(exc):

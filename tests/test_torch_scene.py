@@ -132,9 +132,10 @@ def test_scene_dict_bit_exact_and_scene_from_jax():
 
 @pytest.mark.parametrize("what", ["bounce"])
 def test_renderer_raises_for_unported_features(what):
-    """The bounce integrator is ported: the Renderer takes it. What is left
-    unported, the dup_stage profiling hook, raises when a frame starts; an
-    unknown integrator raises at construction."""
+    """The bounce integrator is ported: the Renderer takes it. The dup_stage
+    profiling hook is ported too: a frame with a stage doubled is the
+    undoubled frame bit for bit. An unknown integrator raises at
+    construction."""
     fb, mats, envmap, texture = _scene("default")
     r = trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
                            width=8, height=8,
@@ -146,8 +147,9 @@ def test_renderer_raises_for_unported_features(what):
                            settings=RenderSettings(dup_stage="shade"),
                            device="cpu")
     rc = tdemo.default_camera(8, 8).build_render_camera()
-    with pytest.raises(NotImplementedError, match="profiler"):
-        r.render_frames(r.zeros_accum(), rc, 1, 1)
+    doubled = r.render_frames(r.zeros_accum(), rc, 1, 1)
+    r.settings = dataclasses.replace(r.settings, dup_stage="")
+    assert torch.equal(doubled, r.render_frames(r.zeros_accum(), rc, 1, 1))
     with pytest.raises(ValueError):
         trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
                            width=8, height=8,

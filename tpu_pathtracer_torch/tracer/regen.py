@@ -47,8 +47,14 @@ material) and the distant light (`use_distant_light`: one more any-hit
 shadow trace a wave, also from BSSRDF exit points) run in the same wave
 body, as in the JAX package.
 
-Not ported (it raises): the dup_stage profiling hook of the JAX bench,
-which waits for the port's profiler tool.
+`dup_stage` (the JAX bench's stage-duplication hook): the stage named
+runs twice a wave, the second call perturbed as in the JAX hook, and the
+duplicate is added times zero on its bits (wavefront.plus_zero_times), so
+the image keeps its bits while the frame pays for the stage twice;
+tools/profile_frame.py --dup prices each stage so. The stages are those of
+DUP_STAGES; `scatter` duplicates each index_add_ into a scratch image that
+is then dropped, and `texture`, `shade`, `sample_env` and `shadow_trace`
+are duplicated inside wavefront.shade_hits.
 """
 from __future__ import annotations
 
@@ -59,9 +65,14 @@ from ..core.rng import RaySampler, wang_hash, MASK32
 from .medium import medium_interaction
 from .wavefront import (
     RenderSettings, trace_rays, fetch_attributes, env_miss_weighted,
-    env_tex_merged, shade_hits, distant_light,
+    env_tex_merged, shade_hits, distant_light, plus_zero_times,
 )
 from .renderer import generate_camera_rays, lane_pixel_xy
+
+
+# the JAX regen's dup_stage names (tpu_pathtracer/tracer/regen.py)
+DUP_STAGES = ("respawn", "ext_trace", "fetch", "envmiss", "texture", "shade",
+              "sample_env", "shadow_trace", "scatter", "permute")
 
 
 def _check_settings(settings: RenderSettings):
@@ -81,11 +92,9 @@ def _check_settings(settings: RenderSettings):
     if settings.scatter_mode not in ("ring", "deferred", "wave"):
         raise ValueError("unknown scatter_mode %r (want ring/deferred/wave)"
                          % (settings.scatter_mode,))
-    if settings.dup_stage != "":
-        raise NotImplementedError(
-            "dup_stage=%r: the JAX bench's stage-duplication hook is not "
-            "ported; it waits for the port's profiler tool (torch.profiler)"
-            % (settings.dup_stage,))
+    if settings.dup_stage not in ("",) + DUP_STAGES:
+        raise ValueError("unknown dup_stage %r (want one of %s)"
+                         % (settings.dup_stage, ", ".join(DUP_STAGES)))
 
 
 def make_regen_integrator(settings: RenderSettings, width, height,
@@ -117,6 +126,7 @@ def make_regen_integrator(settings: RenderSettings, width, height,
     # compacted dead tail: an inplace render adds every wave
     deferred = (settings.scatter_mode in ("ring", "deferred")
                 and not inplace)
+    dup = settings.dup_stage
 
     def _and(active, x):
         return x if active is None else active & x
@@ -131,9 +141,15 @@ def make_regen_integrator(settings: RenderSettings, width, height,
         n = o.shape[0]
         live = active if active is not None else torch.ones(
             (n,), dtype=torch.bool, device=o.device)
+        prefix = n if active is None else None
         hit_slot, hit_t = trace_rays(
             scene, settings, o, d, RAY_MIN, RAY_MAX, anyhit=False,
-            active=live, active_prefix=n if active is None else None)
+            active=live, active_prefix=prefix)
+        if dup == "ext_trace":
+            _, ht2 = trace_rays(scene, settings, o, d, RAY_MIN * 1.0000001,
+                                RAY_MAX, anyhit=False, active=live,
+                                active_prefix=prefix)
+            hit_t = plus_zero_times(hit_t, ht2)
         if settings.has_media:
             r, o, d, m, sampled_medium = medium_interaction(
                 scene, r, o, d, m, hit_t, mid, live)
@@ -146,6 +162,11 @@ def make_regen_integrator(settings: RenderSettings, width, height,
         hitpoint = o + d * hit_t[:, None]
         hit_uv, smooth_n, mat_id, tri_n = fetch_attributes(
             scene, hit_slot, hitpoint)
+        if dup == "fetch":
+            hit_uv, smooth_n, mat_id, tri_n = (
+                plus_zero_times(x, x2) for x, x2 in zip(
+                    (hit_uv, smooth_n, mat_id, tri_n),
+                    fetch_attributes(scene, hit_slot, hitpoint + 1e-7)))
         merged_et = (settings.merge_envtex and settings.use_texture
                      and settings.use_envmap
                      and settings.env_importance_sampling
@@ -153,10 +174,19 @@ def make_regen_integrator(settings: RenderSettings, width, height,
         if merged_et:
             env, tex_rgb = env_tex_merged(scene, settings, d, pdf_prev,
                                           cam_vec[15], miss, hit_uv)
+            if dup in ("envmiss", "texture"):
+                # hit_uv perturbed too: it feeds the gather's row index
+                e2, t2 = env_tex_merged(scene, settings, d, pdf_prev + 1e-7,
+                                        cam_vec[15], miss, hit_uv + 1e-7)
+                env = plus_zero_times(env, e2)
+                tex_rgb = plus_zero_times(tex_rgb, t2)
         else:
             tex_rgb = None
             env = env_miss_weighted(scene, settings, d, pdf_prev,
                                     cam_vec[15])
+            if dup == "envmiss":
+                env = plus_zero_times(env, env_miss_weighted(
+                    scene, settings, d, pdf_prev + 1e-7, cam_vec[15]))
         contrib = torch.where(miss[:, None], m * env, 0.0)
         surf = ~miss & ~sampled_medium if settings.has_media else ~miss
         surf = _and(active, surf)
@@ -165,7 +195,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
         (r, o, d, m, pdf_new, lb, mid, contrib, ended,
          n_shadow) = shade_hits(
             scene, settings, r, o, d, m, pdf_prev, lbn_a, mid, surf, hit,
-            tex_rgb, contrib, cam_vec[15], light, count_rays=with_stats)
+            tex_rgb, contrib, cam_vec[15], light, count_rays=with_stats,
+            dup_stage=dup)
         if active is None:
             bn = bn_prev + 1
         else:
@@ -184,6 +215,14 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             raise ValueError("at most 2^32 samples per call (the sample id "
                              "is a uint32 in the RNG seed)")
         accum = accum.clone()
+        # dup_stage="scatter": each index_add_ is repeated into this scratch
+        # image, which is dropped
+        scratch = torch.zeros_like(accum) if dup == "scatter" else None
+
+        def add_to_image(idx, val):
+            accum.index_add_(0, idx, val)
+            if scratch is not None:
+                scratch.index_add_(0, idx, val * 1.0000001)
         f32 = dict(dtype=torch.float32, device=device)
         # the vector state: [P,3] rows, or [3,P] planes under "sort"
         vshape = (3, P) if sort_mode else (P, 3)
@@ -230,9 +269,14 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                 pixel_glob = pixel_new + int(lane0)
                 rng_new = RaySampler.init(wang_hash(frame_new), pixel_glob)
                 pxi, pyi = lane_pixel_xy(pixel_glob, width, height)
+                px, py = pxi.to(torch.float32), pyi.to(torch.float32)
                 rng_new, o_new, d_new = generate_camera_rays(
-                    cam_vec, rng_new, pxi.to(torch.float32),
-                    pyi.to(torch.float32))
+                    cam_vec, rng_new, px, py)
+                if dup == "respawn":
+                    r2, o2, d2 = generate_camera_rays(cam_vec, rng_new,
+                                                      px + 1e-6, py)
+                    o_new = plus_zero_times(
+                        o_new, o2 + d2 + r2[:, None].to(torch.float32))
                 set_rows(orig, s, o_new)
                 set_rows(raydir, s, d_new)
                 set_rows(mask, s, torch.ones_like(o_new))
@@ -262,7 +306,7 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             if deferred:
                 ell_a = rows(ell, a) + contrib
             else:
-                accum.index_add_(0, pixel[a], contrib)
+                add_to_image(pixel[a], contrib)
                 ell_a = rows(ell, a)
             n_fin = int(finished.sum())          # the wave's one host read
             alive = n_act - n_fin
@@ -287,15 +331,22 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             if sort_mode:
                 # one stable sort order moves every plane and column
                 src = torch.sort(key, stable=True)[1]
+                src2 = (torch.sort(key + 1, stable=True)[1]
+                        if dup == "permute" else None)
+
+                def move(v):
+                    if src2 is None:
+                        return v[..., src]
+                    return plus_zero_times(v[..., src], v[..., src2])
                 for t, v in ((orig, o), (raydir, d), (mask, m),
                              (ell, ell_a)):
-                    t[:, a] = v.t()[:, src]
-                bsdf_pdf[a] = pdf_new[src]
-                rng[a] = r[src]
-                pixel[a] = pixel[a][src]
-                lbn[a] = lb[src]
-                bounce[a] = bn[src]
-                medium_id[a] = mid[src]
+                    t[:, a] = move(v.t())
+                bsdf_pdf[a] = move(pdf_new)
+                rng[a] = move(r)
+                pixel[a] = move(pixel[a])
+                lbn[a] = move(lb)
+                bounce[a] = move(bn)
+                medium_id[a] = move(mid)
             else:
                 # one row gather moves the packed pool; int32 bits:
                 # orig 0:3 | dir 3:6 | mask 6:9 | bsdf_pdf 9 | L 10:13 |
@@ -309,7 +360,9 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                     r.to(torch.int32)[:, None],
                     pixel[a].to(torch.int32)[:, None],
                     (lb | (bn << 8) | ((mid + 1) << 16))[:, None]],
-                    dim=1)[src]
+                    dim=1)
+                pmat = (plus_zero_times(pmat[src], pmat[src])
+                        if dup == "permute" else pmat[src])
                 orig[a] = pmat[:, 0:3].contiguous().view(torch.float32)
                 raydir[a] = pmat[:, 3:6].contiguous().view(torch.float32)
                 mask[a] = pmat[:, 6:9].contiguous().view(torch.float32)
@@ -324,7 +377,7 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             if deferred and n_fin:
                 # the paths that died this wave are now rows [alive, n_act)
                 dead = slice(alive, n_act)
-                accum.index_add_(0, pixel[dead], rows(ell, dead))
+                add_to_image(pixel[dead], rows(ell, dead))
 
         if stop_after_waves:
             vec = {k: (t.t() if sort_mode else t) for k, t in

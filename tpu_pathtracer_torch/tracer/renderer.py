@@ -325,9 +325,23 @@ class Renderer:
         return img
 
     def accum_to_image(self, accum, frame_count):
-        """Tonemap the lane-ordered accumulation into [H,W,3] uint8."""
+        """Tonemap the lane-ordered accumulation into [H,W,3] uint8.
+
+        As in the JAX package, the type decides where: a torch tensor is
+        clamped, gamma-corrected and quantised in f32 on its own device and
+        only the uint8 comes back (a quarter of the f32 readback, which the
+        viewer pays every frame); a numpy array takes the host f64
+        core.image.tonemap. The two differ by at most one uint8 step (f32
+        against f64 pow before the rounding)."""
         from ..core.image import tonemap
-        return tonemap(self.accum_to_buffer(accum), frame_count)
+        if not isinstance(accum, torch.Tensor):
+            return tonemap(self.accum_to_buffer(accum), frame_count)
+        n = self.width * self.height
+        x = torch.clamp(accum[:n] / float(max(int(frame_count), 1)), 0.0, 1.0)
+        u8 = (torch.pow(x, 1.0 / 2.2) * 255.0 + 0.5).to(torch.uint8)
+        img = np.zeros((self.height, self.width, 3), np.uint8)
+        img[self._lane_py, self._lane_px] = u8.cpu().numpy()
+        return img
 
 
 def scene_parts_from_desc(desc: SceneDesc, base_dir="", cache_dir=None):

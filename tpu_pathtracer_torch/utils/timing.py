@@ -1,10 +1,17 @@
-"""Timing: kernel times on the card (`cuda_ms`) and wall-clock telemetry
-for the CLI (`Timer`, `RateMeter`, as the JAX package's utils/timing.py)."""
+"""Timing: kernel times on the card (`cuda_ms`), `synchronize` for host
+clocks around device work, and wall-clock telemetry for the CLI (`Timer`,
+`RateMeter`, as the JAX package's utils/timing.py)."""
 from __future__ import annotations
 
 import time
 
 import torch
+
+
+def synchronize(device):
+    """Wait for a CUDA device's queued work; a no-op for the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def cuda_ms(fn, reps):

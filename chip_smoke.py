@@ -3,22 +3,29 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It needs one CUDA device and nvcc; it
+Run from the root of a checkout. `python3 chip_smoke.py --ab DIR [--out
+FILE]` instead times the port of the checkout DIR (see measure_ab) and
+prints one JSON line: run it for a parent and a tree in one call, in the
+order parent, tree, tree, parent. It needs one CUDA device and nvcc; it
 fails (non-zero exit, no result line) without them, and it never falls
 back to the CPU. Phases, each fatal on failure:
 
 1. require a CUDA device; read the card's name and power limit;
 2. build every CUDA source under tpu_pathtracer_torch/csrc/ (one nvcc per
    source, in parallel) into the ignored csrc/_build/ directory;
-3. hold the traversal kernel (closest hit with a 397-lane prefix, closest
-   hit with a mask and per-lane tmax, any hit with a mask) against its
-   plain PyTorch version on the card, slot and t bit for bit on every
-   lane, and against a float64 brute-force oracle, on camera and
-   incoherent rays of the TestObj stream; time the kernel (its bare C
+3. hold the traversal kernel (closest hit with a 397-lane prefix, given
+   as an int and as a 0-d int32 device tensor that the kernel reads from
+   device memory, any hit with that device prefix, closest hit with a mask
+   and per-lane tmax, any hit with a mask) against its plain PyTorch
+   version on the card, slot and t bit for bit on every lane, and
+   against a float64 brute-force oracle, on camera and incoherent rays of
+   the TestObj stream; time the kernel (its bare C
    entry, and through the wrapper) and the plain version (equal on every
-   lane again) at 1M rays in three forms (closest hit over the whole
-   prefix, any hit under a 50% mask, closest hit under a 70% mask with
-   per-lane tmax) and on small launches (4,096 and 65,536 camera rays);
+   lane again) at 1M rays in five forms (closest hit over the whole
+   prefix as an int, and as a 0-d int32 device tensor of 1M and of 1M - 5
+   lanes, each equal to the int-prefix launch on every lane; any hit under
+   a 50% mask; closest hit under a 70% mask with per-lane tmax) and on
+   small launches (4,096 and 65,536 camera rays);
 3b. hold the step-counting kernel (count_steps=True) on the same rays and
    forms: its slot and t equal the non-counting kernel's bit for bit, its
    steps the plain version's on every lane, 0 outside the active set;
@@ -95,9 +102,30 @@ back to the CPU. Phases, each fatal on failure:
    stage, each stage backwards, none), then every doubled image of 3 spp
    held to the undoubled one bit for bit under torch's deterministic
    algorithms;
+10. the regen frame as one device program (tracer/regen.py: fixed-width
+   waves with device-side counts, each captured once as a CUDA graph and
+   replayed; phases 4-9 above already run this way): (10a) on TestObj and
+   the organic sss and media scenes at 256x256, 2 spp, under torch's
+   deterministic algorithms, the replayed frame equals the eager one
+   (regen.no_graphs()) bit for bit, with the same waves, rays and
+   launches; (10b) TestObj at 1024x1024, 2 spp: the replayed frame passes
+   the gate statistics against the eager one, and a replayed render call
+   runs under torch.cuda.set_sync_debug_mode("error"); (10c) at
+   1024x1024, times in turns: TestObj's steady frame (the marginal of
+   frames (1, 3)) and a 1-spp render call, replayed and eager, and the sss
+   and media steady frames; the waves run at each drain width; (10d) the
+   capture time and torch.cuda.max_memory_allocated of a 1024x1024 frame,
+   replayed and eager; (10e) the traverse_kernel events that torch.profiler
+   sees in one replayed 1-spp call at 1024x1024 number exactly the
+   launches the counts give for it (a replay adds its capture's counts;
+   the one wave past the end is counted and launched);
 6. print the kernels line (rows 1-3 also carry their launches on the
    bounce path, "launches_bounce", rows 1-2 on the viewer path,
    "launches_viewer"), the card line, and the result line (last).
+
+Phases 4-9 replay captured regen waves (the default on a CUDA device):
+each renderer's first call of a key captures, and the timed calls come
+after a warm-up call of the same key.
 
 Bounds. A traversal kernel's bound is the larger of its bytes (active
 rays, the table once, mask and outputs) over 3.35 TB/s and its operations over the
@@ -129,6 +157,7 @@ CLI_SIZE = 256             # phase 8e's image
 VIEWER_H = 1080            # phase 9's window height (16:9)
 SHOWCASE_ENV = 2048        # phase 9c's sky width
 GALLERY_SIZE = 128         # phase 9d's images
+EXACT_SIZE = 256           # phase 10a's images
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM FP32 outside the tensor cores
 OPS_PER_STEP = 39          # FP32 arithmetic of a triangle step (node: 48)
@@ -157,17 +186,25 @@ def brute(np, tri_verts, o, d, tmax):
 
 
 def trav_forms(np, torch, g, n, dev):
-    """The three checked forms on n lanes: {name: (kwargs, anyhit, mask,
-    tmax per lane, tmax argument)}; draws the mask, then the per-lane tmax,
-    from g."""
+    """The checked forms on n lanes: {name: (kwargs, anyhit, mask, tmax
+    per lane, tmax argument)}; draws the mask, then the per-lane tmax,
+    from g. The device-prefix forms pass the prefix as a 0-d int32 tensor
+    on the card, which the kernel reads from device memory."""
     act = torch.from_numpy(g.random(n) < 0.7).to(dev)
     tmax_l = torch.from_numpy(
         g.uniform(0.5, 8.0, n).astype(np.float32)).to(dev)
     full = torch.full((n,), RAY_MAX, device=dev)
+    prefix_dev = torch.tensor(PREFIX, dtype=torch.int32, device=dev)
     return {
         "closest_prefix": (dict(active_prefix=PREFIX), False,
                            torch.arange(n, device=dev) < PREFIX, full,
                            RAY_MAX),
+        "closest_device_prefix": (dict(active_prefix=prefix_dev), False,
+                                  torch.arange(n, device=dev) < PREFIX,
+                                  full, RAY_MAX),
+        "anyhit_device_prefix": (dict(active_prefix=prefix_dev, anyhit=True),
+                                 True, torch.arange(n, device=dev) < PREFIX,
+                                 full, RAY_MAX),
         "closest_mask_lane_tmax": (dict(active=act), False, act, tmax_l,
                                    tmax_l),
         "anyhit_mask": (dict(active=act, anyhit=True), True, act, full,
@@ -175,25 +212,37 @@ def trav_forms(np, torch, g, n, dev):
     }
 
 
-TIMED_FORMS = ("closest", "anyhit", "closest_lane_tmax")
+TIMED_FORMS = ("closest", "closest_device_prefix",
+               "closest_device_prefix_n5", "anyhit", "closest_lane_tmax")
+DEVICE_PREFIX_FORMS = {"closest_device_prefix": 0,
+                       "closest_device_prefix_n5": 5}
 
 
 def timed_forms(np, torch, g, n, dev):
     """The timed forms on n lanes: {kind: (kwargs, anyhit, mask or None,
-    tmax argument, active rays)}. closest: the whole prefix, as the
-    extension trace; anyhit: a 50% mask, as the NEE shadow trace;
-    closest_lane_tmax: a 70% mask with per-lane tmax in [0.5, 8)."""
+    tmax argument, active rays)}. closest: the whole prefix as a host int;
+    closest_device_prefix(_n5): the prefix n (n - 5) as a 0-d int32 device
+    tensor that the kernel reads from device memory, as the extension trace
+    of the regen wave launches it; anyhit: a 50% mask, as the NEE shadow
+    trace; closest_lane_tmax: a 70% mask with per-lane tmax in [0.5, 8)."""
     half = torch.from_numpy(g.random(n) < 0.5).to(dev)
     act = torch.from_numpy(g.random(n) < 0.7).to(dev)
     tmax_l = torch.from_numpy(
         g.uniform(0.5, 8.0, n).astype(np.float32)).to(dev)
-    return {
+    forms = {
         "closest": (dict(active_prefix=n), False, None, RAY_MAX, n),
         "anyhit": (dict(active=half, anyhit=True), True, half, RAY_MAX,
                    int(half.sum())),
         "closest_lane_tmax": (dict(active=act), False, act, tmax_l,
                               int(act.sum())),
     }
+    for kind, cut in DEVICE_PREFIX_FORMS.items():
+        m = n - cut
+        forms[kind] = (
+            dict(active_prefix=torch.tensor(m, dtype=torch.int32,
+                                            device=dev)),
+            False, torch.arange(n, device=dev) < m, RAY_MAX, m)
+    return forms
 
 
 def check_forms(np, torch, ops, trav, fb, packed, mesh, rays, tag, g):
@@ -456,9 +505,10 @@ def time_residency(torch, ops, trav, cuda_ms, packed, sd, sets, table_mem,
 
 
 def timed_frames(np, torch, ops, r, rc, spp, tag):
-    """A 1-spp warm-up, then spp timed frames with every launch count set
-    to 0 before and read after. Returns the record and the image."""
-    r.render_frames(r.zeros_accum(), rc, 1, 1)
+    """A 1-spp warm-up of the same key (it captures the regen waves), then
+    spp timed frames with every launch count set to 0 before and read
+    after. Returns the record and the image."""
+    r.render_frames(r.zeros_accum(), rc, 1, 1, with_stats=True)
     torch.cuda.synchronize()
     for counts in (ops.LAUNCHES, ops.FORM_LAUNCHES):
         for k in counts:
@@ -487,6 +537,8 @@ def timed_frames(np, torch, ops, r, rc, spp, tag):
            "mean_radiance": float(img.mean()), "launches": launches,
            "launches_per_frame": {k: v / spp for k, v in launches.items()
                                   if v}}
+    if r.settings.integrator == "regen":
+        rec["waves_by_width"] = r.regen_integrator(True).last_waves
     log("%s %dx%d x %d spp (%s, table_mem=%s): %.1f ms per 1-spp frame, "
         "%d %s, %.0f rays, %.1f Mrays/s, launches per frame %s"
         % (tag, r.width, r.height, spp, r.settings.integrator,
@@ -494,6 +546,114 @@ def timed_frames(np, torch, ops, r, rc, spp, tag):
            "bounces" if r.settings.integrator == "bounce" else "waves",
            rays, rec["mrays_per_s"], rec["launches_per_frame"]))
     return rec, img
+
+
+def marginal_ms(torch, r, rc):
+    """(steady, one) ms: the steady frame as the marginal of render calls of
+    1 and 3 frames ((t3 - t1) / 2, so a call's drain cancels) and the
+    1-spp call, host clocks around synchronized calls."""
+    def t(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render_frames(r.zeros_accum(), rc, 1, n)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    t1, t3 = t(1), t(3)
+    return (t3 - t1) / 2, t1
+
+
+AB_TURNS = 5
+
+
+def measure_ab(root):
+    """`--ab DIR`: the frame times of the port in the checkout DIR on the
+    card, for an A/B of two checkouts inside one call (parent, tree, tree,
+    parent). It uses only what the port has had since its viewer slice
+    (Renderer.render_frames, the demo scenes, tools/probe_viewer.probe,
+    tools/profile_frame.profile, ops.traverse_packet.launch_fn), so it
+    measures an older checkout as well. Medians of AB_TURNS turns, after a
+    warm-up of each renderer (kernel build, BVH load, capture): the TestObj,
+    sss and media steady frames and 1-spp calls at 1024x1024 (marginal_ms),
+    the viewer's ladder at a 1920x1080 window, the idle share of profiled
+    TestObj calls of 1 and 3 frames (busy over each window of one trace)
+    beside the marginal readings, the capture
+    time where the checkout captures, max_memory_allocated, and the bare
+    traversal launch on 1M coherent camera rays (closest hit over the whole
+    int prefix; any hit under a 50% mask) with ptxas's registers. Returns
+    the record."""
+    import statistics
+    import numpy as np
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke --ab: no CUDA device")
+    import tpu_pathtracer_torch
+    from tpu_pathtracer_torch.utils import cuda_build
+    from tpu_pathtracer_torch.utils.timing import cuda_ms
+    from tpu_pathtracer_torch.ops import traverse_packet as ops
+    from tpu_pathtracer_torch.scene import demo
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.tools import probe_viewer, profile_frame
+    from tpu_pathtracer_torch.tools.probe_steps import camera_rays
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    W = 1024
+    cache = os.path.join(HERE, ".bvh_cache_torch")     # shared by the runs
+    rc = demo.default_camera(W, W).build_render_camera()
+    rec = {"root": os.path.abspath(root), "card": card_line(),
+           "package": os.path.dirname(tpu_pathtracer_torch.__file__)}
+    log_text = cuda_build.KernelLibs(["traverse"]).logs.get("traverse", "")
+    rec["ptxas_registers"] = {"<%d,%d,%d>" % k: v for k, v in
+                              ptxas_registers(log_text).items()}
+    t_start = time.time()
+
+    def frames(r):
+        marginal_ms(torch, r, rc)                          # warm-up
+        got = [marginal_ms(torch, r, rc) for _ in range(AB_TURNS)]
+        out = {"steady_runs": [a for a, _ in got],
+               "render_1spp_runs": [b for _, b in got]}
+        out["steady_ms"] = statistics.median(out["steady_runs"])
+        out["render_1spp_ms"] = statistics.median(out["render_1spp_runs"])
+        out["capture_s"] = [fn.graph.capture_s for fn in getattr(
+            r, "_integrators", {}).values() if getattr(fn, "graph", None)]
+        return out
+
+    parts = demo.testobj_scene(cache_dir=cache)
+    r = Renderer(parts[0], parts[1], envmap=parts[2], texture=parts[3],
+                 width=W, height=W, device=dev)
+    rec["testobj"] = frames(r)
+    lo, hi, marg = profile_frame.profile(r, rc, (1, 3))["spans"]
+    rec["testobj"]["profile"] = {
+        "calls": [{k: sp[k] for k in ("frames", "window_ms", "busy_ms",
+                                      "idle_share")} for sp in (lo, hi)],
+        "marginal": {k: marg[k] for k in ("busy_ms", "window_ms", "frame_ms",
+                                          "idle_share", "frame_idle_share")}}
+    o, d = camera_rays(W, dev)
+    half = torch.from_numpy(
+        np.random.default_rng(5).random(o.shape[0]) < 0.5).to(dev)
+    rec["kernel"] = {}
+    for name, kw in (("closest", dict(active_prefix=o.shape[0])),
+                     ("anyhit", dict(active=half, anyhit=True))):
+        fn = ops.launch_fn(r.scene["packed"], o, d, RAY_MIN, RAY_MAX,
+                           stack_depth=parts[0].max_depth + 2, **kw)
+        rec["kernel"][name + "_ms"] = [cuda_ms(fn, 50), cuda_ms(fn, 50)]
+    del r, o, d, half
+    for variant in ("sss", "media"):
+        fb, mats, env, tex = demo.large_organic_scene(cache_dir=cache,
+                                                      variant=variant)
+        rec[variant] = frames(Renderer(fb, mats, envmap=env, texture=tex,
+                                       width=W, height=W, device=dev))
+        torch.cuda.empty_cache()
+    view = probe_viewer.probe(parts, VIEWER_H, dev, reps=AB_TURNS)
+    rec["viewer_1080p"] = {"preview": view["preview"],
+                           "full_1spp_ms": view["full_ms"],
+                           "batch4_ms_per_frame":
+                               view["batch4_ms_per_frame"]}
+    rec["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated(dev) / 1e9
+    rec["s"] = time.time() - t_start
+    return rec
 
 
 def event_ms(torch, fn):
@@ -588,8 +748,10 @@ def phase8(np, torch, ops, dev, fb, mats, envmap, texture, sss_parts, rc,
     got, t_shard = event_ms(torch, lambda: frame(sr))
     assert torch.equal(got[:W * H], whole), "2 shards != 1 (bounce)"
     r.settings = regen_s
+    frame(r)                                  # warm-ups: the captures
     g_whole, t_g_whole = event_ms(torch, lambda: frame(r))
     sr = ShardedRenderer(r, mesh=make_mesh([dev, dev]))
+    frame(sr)
     got, t_g_shard = event_ms(torch, lambda: frame(sr))
     g_gate = gate(np, got[:W * H].cpu().numpy(), g_whole.cpu().numpy(),
                   "2 regen shards")
@@ -606,9 +768,9 @@ def phase8(np, torch, ops, dev, fb, mats, envmap, texture, sss_parts, rc,
     # ---- 8d. the last regen orders at full width, 2 spp ----
     def frames2(settings):
         r.settings = settings
+        r.render_frames(r.zeros_accum(), rc, 1, 2)       # warm-up, capture
         return event_ms(torch, lambda: r.render_frames(r.zeros_accum(), rc,
                                                        1, 2))
-    frames2(regen_s)                                  # warm-up
     compact, t_compact = frames2(regen_s)
     inplace, t_inplace = frames2(dataclasses.replace(regen_s,
                                                      regen_order="inplace"))
@@ -880,6 +1042,199 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
     return rec
 
 
+def phase10(np, torch, ops, dev, scenes, W):
+    """Phase 10: the replayed regen frame against the eager one, its
+    timings, capture time and memory. scenes: {"testobj", "sss", "media"}
+    -> scene parts. Returns the record."""
+    import tempfile
+    from tpu_pathtracer_torch.scene import demo
+    from tpu_pathtracer_torch.tracer import regen
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    rec = {}
+
+    def renderer(tag, size):
+        fb, mats, envmap, texture = scenes[tag]
+        return (Renderer(fb, mats, envmap=envmap, texture=texture,
+                         width=size, height=size, device=dev),
+                demo.default_camera(size, size).build_render_camera())
+
+    def counted(r, rc, spp, stats=True):
+        for table in (ops.LAUNCHES, ops.FORM_LAUNCHES):
+            for k in table:
+                table[k] = 0
+        out = r.render_frames(r.zeros_accum(), rc, 1, spp,
+                              with_stats=stats)
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in {**ops.LAUNCHES,
+                                       **ops.FORM_LAUNCHES}.items() if v}
+
+    def captures(r, stats=True):
+        g = r.regen_integrator(stats).graph
+        return [] if g is None else [g.capture_s]
+
+    # ---- 10a. replayed = eager bit for bit, deterministic, 256x256 ----
+    rec["bit_for_bit"] = {}
+    for tag in ("testobj", "sss", "media"):
+        r, rc = renderer(tag, EXACT_SIZE)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with regen.no_graphs():
+                (want, w_waves, w_rays), w_counts = counted(r, rc, 2)
+            t0 = time.perf_counter()
+            counted(r, rc, 2)                       # captures
+            first_s = time.perf_counter() - t0
+            (got, waves, rays), counts = counted(r, rc, 2)
+            # the deterministic mode keys its own integrator
+            by_width = r.regen_integrator(True).last_waves
+            capture_s = captures(r)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert torch.equal(got, want), (tag, "replayed != eager")
+        assert (waves, rays) == (w_waves, w_rays), (tag, waves, w_waves)
+        assert counts == w_counts, (tag, counts, w_counts)
+        assert capture_s and \
+            sum(by_width.values()) == waves + regen.LAG - 1, \
+            (tag, by_width, capture_s)
+        rec["bit_for_bit"][tag] = {
+            "waves": waves, "rays": rays, "launches": counts,
+            "waves_by_width": by_width, "first_call_s": first_s,
+            "capture_s": capture_s}
+        log("  10a %-7s %dx%d x 2 spp: replayed = eager bit for bit "
+            "(deterministic), %d waves %s, launches %s, first call %.2f s "
+            "(captures %s s)" % (tag, EXACT_SIZE, EXACT_SIZE, waves,
+                                 by_width, counts, first_s,
+                                 ["%.2f" % c for c in capture_s]))
+        del r, want, got
+    torch.cuda.empty_cache()
+
+    # ---- 10b. the gate at full width, no synchronising call ----
+    r, rc = renderer("testobj", W)
+    with regen.no_graphs():
+        (want, _, _), w_counts = counted(r, rc, 2)
+    counted(r, rc, 2)
+    (got, _, _), counts = counted(r, rc, 2)
+    assert counts == w_counts, (counts, w_counts)
+    g_gate = gate(np, got.cpu().numpy() / 2, want.cpu().numpy() / 2,
+                  "replayed vs eager 1024")
+    r.render_frames(r.zeros_accum(), rc, 1, 2)          # warm the no-stats
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        acc = r.render_frames(r.zeros_accum(), rc, 1, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(acc).all().item() and acc.mean().item() > 0
+    rec["gate_1024"] = g_gate
+    rec["sync_debug_error_passed"] = True
+    log("  10b TestObj %dx%d x 2 spp: replayed vs eager %s; a replayed call "
+        "ran under set_sync_debug_mode('error')" % (W, W, g_gate))
+    del want, got, acc
+
+    # ---- 10e. the launch counts against what the device ran ----
+    # a replay launches no wrapper: its counts are the capture's, added a
+    # replay; the profiler's traverse_kernel events of one replayed call
+    # must number what the counts say for that call
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_pathtracer_torch.utils.profiling import load_events
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, p_counts = counted(r, rc, 1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "replay.json")
+        prof.export_chrome_trace(path)
+        del prof
+        n_events = sum(1 for e in load_events(path)
+                       if e.get("cat") == "kernel"
+                       and "traverse_kernel" in e.get("name", ""))
+    n_counted = sum(v for k, v in p_counts.items() if k in ops.LAUNCHES)
+    assert n_events == n_counted > 0, (n_events, p_counts)
+    rec["profiled_launches"] = {"traverse_kernel_events": n_events,
+                                "counted": p_counts,
+                                "waves_by_width":
+                                    r.regen_integrator(True).last_waves}
+    log("  10e a profiled replayed 1-spp call: %d traverse_kernel events "
+        "on the device = %d launches counted %s (waves by width %s, the "
+        "one past the end included)" % (n_events, n_counted, p_counts,
+                                        r.regen_integrator(True).last_waves))
+
+    # ---- 10c. times: replayed and eager in turns ----
+    def marginal(rr, rcc):
+        return marginal_ms(torch, rr, rcc)
+    turns = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph", "graph", "eager"):
+        if mode == "eager":
+            with regen.no_graphs():
+                turns[mode].append(marginal(r, rc))
+        else:
+            turns[mode].append(marginal(r, rc))
+    steady = {m: [a for a, _ in v] for m, v in turns.items()}
+    one = {m: [b for _, b in v] for m, v in turns.items()}
+    rec["testobj_1024"] = {
+        "steady_ms": steady, "render_1spp_ms": one,
+        "steady_median_ms": {m: float(np.median(v))
+                             for m, v in steady.items()},
+        "render_1spp_median_ms": {m: float(np.median(v))
+                                  for m, v in one.items()}}
+    _, w1 = counted(r, rc, 1)
+    rec["testobj_1024"]["waves_by_width_1spp"] = \
+        r.regen_integrator(True).last_waves
+    log("  10c TestObj %dx%d steady frame (marginal of frames (1, 3)): "
+        "replayed %s, eager %s ms; 1-spp render call: replayed %s, eager "
+        "%s ms; a 1-spp call's waves by width %s"
+        % (W, W, ["%.1f" % x for x in steady["graph"]],
+           ["%.1f" % x for x in steady["eager"]],
+           ["%.1f" % x for x in one["graph"]],
+           ["%.1f" % x for x in one["eager"]],
+           rec["testobj_1024"]["waves_by_width_1spp"]))
+    del r
+    torch.cuda.empty_cache()
+    for tag in ("sss", "media"):
+        rs, rcs = renderer(tag, W)
+        marginal(rs, rcs)                                  # captures
+        got = [marginal(rs, rcs) for _ in range(3)]
+        rec[tag + "_1024"] = {
+            "steady_ms": [a for a, _ in got],
+            "render_1spp_ms": [b for _, b in got],
+            "steady_median_ms": float(np.median([a for a, _ in got]))}
+        log("  10c %s %dx%d replayed: steady frame %s ms, 1-spp render "
+            "call %s ms" % (tag, W, W, ["%.1f" % a for a, _ in got],
+                            ["%.1f" % b for _, b in got]))
+        del rs
+        torch.cuda.empty_cache()
+
+    # ---- 10d. capture time and peak memory of a 1024x1024 frame ----
+    mem = {}
+    for mode in ("eager", "graph"):
+        r, rc = renderer("testobj", W)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        if mode == "eager":
+            with regen.no_graphs():
+                r.render_frames(r.zeros_accum(), rc, 1, 1)
+        else:
+            r.render_frames(r.zeros_accum(), rc, 1, 1)
+        torch.cuda.synchronize()
+        mem[mode] = {"first_call_s": time.perf_counter() - t0,
+                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                     "peak_over_start_gb": (torch.cuda.max_memory_allocated(
+                         dev) - base) / 1e9,
+                     "capture_s": captures(r, False)}
+        del r
+    rec["memory"] = mem
+    log("  10d TestObj %dx%d first call: eager %.2f s, peak %.2f GB; "
+        "replayed %.2f s (captures %s s, every drain width), peak %.2f GB"
+        % (W, W, mem["eager"]["first_call_s"], mem["eager"]["peak_gb"],
+           mem["graph"]["first_call_s"],
+           ["%.2f" % c for c in mem["graph"]["capture_s"]],
+           mem["graph"]["peak_gb"]))
+    torch.cuda.empty_cache()
+    return rec
+
+
 DMA_CASES = (("gather_wide", 128, "perm", 1, "gather"),
              ("gather_flat", 0, "perm", 1, "gather"),
              ("gather_batch8", 128, "run8", 8, "gather"),
@@ -1002,6 +1357,18 @@ def golden_configs(organic_sss_mats, organic_media_mats):
 
 
 def main():
+    if sys.argv[1:2] == ["--ab"]:
+        if len(sys.argv) not in (3, 5) or sys.argv[4:] and \
+                sys.argv[3] != "--out":
+            print("usage: chip_smoke.py --ab DIR [--out FILE]",
+                  file=sys.stderr)
+            return 2
+        line = json.dumps(measure_ab(sys.argv[2]))
+        if len(sys.argv) == 5:
+            with open(sys.argv[4], "w") as f:
+                f.write(line + "\n")
+        log(line)
+        return 0
     if not os.path.isdir(os.path.join(HERE, "tpu_pathtracer_torch")):
         print("chip_smoke.py must run from the root of a checkout (no "
               "tpu_pathtracer_torch/ beside it)", file=sys.stderr)
@@ -1124,6 +1491,14 @@ def main():
             ps, pt = plain()
             assert torch.equal(ks, ps) and torch.equal(kt, pt), \
                 (tag, kind, "kernel != plain version")
+            if kind in DEVICE_PREFIX_FORMS:
+                # the same launch with the prefix a host int
+                hs, ht = ops.packet_intersect(
+                    packed, o, d, RAY_MIN, tmax, stack_depth=sd,
+                    active_prefix=n_act)
+                assert torch.equal(ks, hs) and torch.equal(kt, ht), \
+                    (tag, kind, "device prefix != int prefix")
+                del hs, ht
             timing["%s_%s" % (kind, tag)] = {
                 "kernel_ms": [b1, b2], "wrapper_ms": [k1, k2],
                 "plain_ms": [p1, p2], "lanes": o.shape[0], "rays": n_act,
@@ -1172,6 +1547,13 @@ def main():
                                           stack_depth=sd, **kw)
             assert torch.equal(cs, ks) and torch.equal(ct, kt), (tag, kind)
             assert torch.equal(cn, pn), (tag, kind, "steps != plain")
+            if kind in DEVICE_PREFIX_FORMS:
+                hs, ht, hn = ops.packet_intersect(
+                    packed, o, d, RAY_MIN, tmax, stack_depth=sd,
+                    count_steps=True, active_prefix=n_act)
+                assert torch.equal(cs, hs) and torch.equal(ct, ht) and \
+                    torch.equal(cn, hn), (tag, kind, "device != int prefix")
+                del hs, ht, hn
             steps_sum = int(cn.sum().item())
             n_lanes = o.shape[0]
             masked = "active" in kw
@@ -1383,6 +1765,26 @@ def main():
                               big_scenes["organic_sss"], cache, W)
     report["phase9"]["s"] = time.time() - t0
 
+    # ---- 10. the regen frame as one device program ----
+    t0 = time.time()
+    report["phase10"] = phase10(np, torch, ops, dev, {
+        "testobj": (fb, mats, envmap, texture),
+        "sss": big_scenes["organic_sss"],
+        "media": big_scenes["organic_media"]}, W)
+    report["phase10"]["viewer_preview_ms"] = \
+        report["phase9"]["viewer"]["median_step_ms"]["preview"]
+    # the idle share of whole profiled calls (busy and window from one
+    # trace); under graphs the marginal readings (busy over the marginal
+    # window, or over the frame timed without the profiler) are no idle
+    # share: they difference two windows and can go below 0
+    lo, hi, marg = report["phase9"]["profiles"]["testobj_regen"]["spans"]
+    report["phase10"]["idle_share_testobj"] = {
+        "calls": {"%d_frames" % sp["frames"]: sp["idle_share"]
+                  for sp in (lo, hi)},
+        "marginal_of_window": marg["idle_share"],
+        "marginal_of_unprofiled_frame": marg["frame_idle_share"]}
+    report["phase10"]["s"] = time.time() - t0
+
     assert "jax" not in sys.modules, "the port imported jax"
     assert not [m for m in sys.modules if m == "tpu_pathtracer"
                 or m.startswith("tpu_pathtracer.")], \
@@ -1392,8 +1794,10 @@ def main():
     src = "tpu_pathtracer_torch/csrc/traverse.cu"
     rep = "tpu_pathtracer/ops/traverse_packet.py:507"
     kernels = []
+    # row 1 as the regen wave launches it: the prefix (1M) read from device
+    # memory; its int-prefix launch beside it
     for name, kind, runs in (
-            ("traverse_closest", "closest", launches),
+            ("traverse_closest", "closest_device_prefix", launches),
             ("traverse_anyhit", "anyhit", launches),
             ("traverse_closest_steps", "closest_steps", census_launches),
             ("traverse_anyhit_steps", "anyhit_steps", census_launches)):
@@ -1409,6 +1813,9 @@ def main():
             "ms": min(tm["kernel_ms"]), "plain_ms": min(tm["plain_ms"]),
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": None})
+    kernels[0]["ms_int_prefix"] = min(timing["closest_coherent"]["kernel_ms"])
+    kernels[2]["ms_device_prefix"] = min(
+        timing["closest_device_prefix_steps_coherent"]["kernel_ms"])
     # row 3: the closest-hit form with a mask and a per-lane tmax (the
     # BSSRDF probe trace) shares the closest-hit instantiations; its
     # launches are those of the sss frames

@@ -295,7 +295,8 @@ def test_refused_launch_is_reported_and_raised(device, monkeypatch):
     def entry(stack_depth, table_rows):
         return ops._lib().tpt_traverse(
             packed.data_ptr(), o.data_ptr(), d.data_ptr(), RAY_MIN, RAY_MAX,
-            None, 64, None, 64, stack_depth, 0, table_rows, slot.data_ptr(),
+            None, 64, None, None, 64, stack_depth, 0, table_rows,
+            slot.data_ptr(),
             t.data_ptr(), None, None,
             torch.cuda.current_stream().cuda_stream)
     err = entry(ops.MAX_STACK_DEPTH + 1, 0)
@@ -660,3 +661,141 @@ def test_viewer_session_on_card(device, tmp_path):
         torch.use_deterministic_algorithms(False)
     s.close()
     assert (tmp_path / "output500.ppm").exists()
+
+
+# ---- the regen frame as one device program: the device prefix, the
+# captured wave and its replays ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["closest", "anyhit", "steps", "table"])
+def test_device_prefix_launch_equals_int_prefix(device, form):
+    """Rows 1, 2, 4 and 6 with the prefix read from device memory: slot, t
+    (and steps) equal the int-prefix launch on every lane, through the
+    wrapper and the bare launch, at prefixes that split a warp, 0 and N."""
+    fb, packed = _testobj()
+    o, d, _ = _rays(N, 29)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    kw = dict(stack_depth=fb.max_depth + 2, anyhit=form == "anyhit",
+              count_steps=form == "steps",
+              table_mem="smem" if form == "table" else "auto")
+    for n in (0, PREFIX, N - 5, N):
+        pre = torch.tensor(n, dtype=torch.int32, device=device)
+        want = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX,
+                                    active_prefix=n, **kw)
+        got = ops.packet_intersect(packed, o, d, RAY_MIN, RAY_MAX,
+                                   active_prefix=pre, **kw)
+        bare = ops.launch_fn(packed, o, d, RAY_MIN, RAY_MAX,
+                             active_prefix=pre, **kw)()
+        torch.cuda.synchronize()
+        for a, b, c in zip(want, got, bare):
+            assert torch.equal(a, b) and torch.equal(a, c), (form, n)
+        assert (want[0][n:] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_kernel_exact_at_the_deepest_stack(device, anyhit):
+    """stack_depth = MAX_DEPTH + 2 = 66, the most a Renderer hands the
+    kernel: slot, t and steps equal the plain version on every lane."""
+    assert ops.MAX_STACK_DEPTH == 66
+    fb, packed = _soup_stream()
+    o, d, g = _rays(N, 37)
+    packed, o, d = (torch.from_numpy(x).to(device) for x in (packed, o, d))
+    act = torch.from_numpy(g.random(N) < 0.7).to(device)
+    _exact(packed, o, d, RAY_MAX, 66, anyhit=anyhit,
+           active=act if anyhit else None)
+
+
+def _graph_case(case, device):
+    """(renderer, camera) of one graph-vs-eager case at 64x64."""
+    import dataclasses
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    W = 64
+    variant = {"media": "media", "bssrdf": "subsurface"}.get(case,
+                                                            "default")
+    fb, mats, envmap, texture = demo.testobj_scene(cache_dir=None,
+                                                   variant=variant)
+    r = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                 height=W, lane_chunk=W * W // 4 if case == "chunks4"
+                 else None, device=device)
+    kw = {"sort": dict(regen_permute="sort"),
+          "inplace": dict(regen_order="inplace"),
+          "dup_shade": dict(dup_stage="shade"),
+          "distant_light": dict(use_distant_light=True)}.get(case, {})
+    r.settings = dataclasses.replace(r.settings, **kw)
+    return r, demo.default_camera(W, W).build_render_camera()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "sort", "inplace", "media",
+                                  "bssrdf", "distant_light", "dup_shade",
+                                  "chunks4"])
+def test_graph_frame_equals_no_graphs_bit_for_bit(device, case):
+    """The replayed regen frame equals the eager one (regen.no_graphs())
+    bit for bit under torch's deterministic algorithms, with the same
+    waves and rays, and launches the same kernels as often."""
+    from tpu_pathtracer_torch.tracer import regen
+    r, rc = _graph_case(case, device)
+
+    def render():
+        for table in (ops.LAUNCHES, ops.FORM_LAUNCHES):
+            for k in table:
+                table[k] = 0
+        out = r.render_frames(r.zeros_accum(), rc, 1, 2, with_stats=True)
+        torch.cuda.synchronize()
+        return out, {**ops.LAUNCHES, **ops.FORM_LAUNCHES}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with regen.no_graphs():
+            (want, w_waves, w_rays), w_counts = render()
+        render()                                     # captures
+        (got, waves, rays), counts = render()
+        captured = r.regen_integrator(True).graph
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(got, want), case
+    assert (waves, rays) == (w_waves, w_rays)
+    assert counts == w_counts and counts["traverse_closest"] > 0
+    assert captured is not None, "no wave was captured"
+
+
+@pytest.mark.cuda
+def test_replays_make_no_synchronising_call(device):
+    """A render call of captured waves, camera upload included, runs under
+    torch.cuda.set_sync_debug_mode("error"): no blocking device read."""
+    r, rc = _graph_case("default", device)
+    r.render_frames(r.zeros_accum(), rc, 1, 2)           # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        acc = r.render_frames(r.zeros_accum(), rc, 1, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(acc).all() and float(acc.mean()) > 0
+
+
+@pytest.mark.cuda
+def test_second_call_reuses_the_graph(device):
+    """One capture serves every call of one key: frames, lane offsets and
+    accumulations are device inputs; the frozen pool of the probes'
+    stop_after_waves replays too and equals the eager one."""
+    from tpu_pathtracer_torch.tracer import regen
+    from tpu_pathtracer_torch.tools.probe_steps import freeze_pool
+    from tpu_pathtracer_torch.tracer.renderer import camera_vector
+    r, rc = _graph_case("default", device)
+    a = r.render_frames(r.zeros_accum(), rc, 1, 1)
+    g = r.regen_integrator().graph
+    b = r.render_frames(a, rc, 2, 1)
+    assert g is not None and r.regen_integrator().graph is g
+    assert g.capture_s > 0 and float(b.mean()) > float(a.mean())
+    vec = camera_vector(rc, device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with regen.no_graphs():
+            want = freeze_pool(r, vec, 3, 2)
+        got = freeze_pool(r, vec, 3, 2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert got["waves"] == want["waves"] == 3
+    for k in ("orig", "dir", "mask", "L", "rng", "pixel", "active"):
+        assert torch.equal(got[k], want[k]), k

@@ -106,3 +106,18 @@ def test_tool_defaults_to_the_card(tool, args, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         mod.main(args)
+
+
+def test_chip_smoke_ab_mode_stops_without_the_card(monkeypatch):
+    """chip_smoke.py --ab DIR (the A/B timing of a checkout) stops without
+    a card instead of falling back to the CPU."""
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_ab", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        mod.measure_ab(root)

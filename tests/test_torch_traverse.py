@@ -187,7 +187,7 @@ def _call(**kw):
     (dict(table_mem="split", step_mode="branch"), ValueError),
     (dict(queue_k=64, interleave=4, step_mode="branch"), ValueError),
     (dict(step_unroll=0), ValueError),
-    (dict(stack_depth=65), ValueError),
+    (dict(stack_depth=67), ValueError),
 ])
 def test_wrapper_raises(kw, exc):
     with pytest.raises(exc):
@@ -339,7 +339,7 @@ def test_bare_launch_refuses_cpu_tensors(kw):
 @pytest.mark.parametrize("kw", [
     dict(active=torch.ones(16, dtype=torch.bool), active_prefix=3),
     dict(stack_depth=0),
-    dict(stack_depth=65),
+    dict(stack_depth=67),
 ])
 def test_bare_launch_checks_arguments(kw):
     """launch_fn applies the wrapper's argument checks before any device
@@ -349,3 +349,26 @@ def test_bare_launch_checks_arguments(kw):
     with pytest.raises(ValueError, match="active|stack_depth"):
         tops.launch_fn(torch.from_numpy(packed), torch.from_numpy(o),
                        torch.from_numpy(d), RAY_MIN, RAY_MAX, **kw)
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_deepest_stack_matches_jax_interpret(anyhit):
+    """stack_depth = MAX_DEPTH + 2 = 66, the most a Renderer hands the
+    traversal (the builders cap a tree at 64 levels): the port takes it,
+    as the JAX kernel does, with the JAX kernel's result."""
+    assert tops.MAX_STACK_DEPTH == 66
+    mesh, fb, packed = _small()
+    o, d, g = _rays(1024, 43)
+    act = g.random(1024) < 0.7
+    js, jt = jpacket(jnp.asarray(packed), jnp.asarray(o), jnp.asarray(d),
+                     RAY_MIN, RAY_MAX, stack_depth=66, anyhit=anyhit,
+                     active=jnp.asarray(act), interpret=True)
+    ts, tt = tops.packet_intersect(torch.from_numpy(packed),
+                                   torch.from_numpy(o), torch.from_numpy(d),
+                                   RAY_MIN, RAY_MAX, stack_depth=66,
+                                   anyhit=anyhit,
+                                   active=torch.from_numpy(act))
+    if anyhit:
+        assert ((ts.numpy() >= 0) == (np.asarray(js) >= 0)).mean() >= 0.999
+    else:
+        _agree(ts, tt, js, jt)

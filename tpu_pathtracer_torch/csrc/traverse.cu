@@ -12,7 +12,13 @@
 // test with t > tmin, t < hit_t and the u, v bounds, leaf runs that end at
 // the meta "last" flag, the SENTINEL / ~row cursor convention of
 // accel/flatten.py, pushes dropped past stack_depth, and slot -1, t = tmax
-// for lanes that are inactive or past the prefix. The arithmetic follows
+// for lanes that are inactive or past the prefix.
+//
+// The prefix comes as a launch argument or, as the Pallas kernel takes it
+// by scalar prefetch (a traced int32, traverse_packet.py:778, 850-856),
+// from device memory: with n_prefix_dev set every thread reads the count
+// there, so a launch captured in a CUDA graph follows a prefix that the
+// previous kernels of the graph computed. The grid stays sized by n. The arithmetic follows
 // tracer/traverse.py:intersect_scene (the plain version) term for term;
 // built with --fmad=false every lane gives its bits.
 //
@@ -29,8 +35,9 @@
 //
 // The design keeps exactly that: one ray per thread in 128-thread blocks,
 // so a warp walks 32 consecutive rays of a compacted (coherent) pool in
-// lockstep, at 40 registers and 48 warps an SM, with a 64-entry stack in
-// local memory. Measured on the card and left out because each made the
+// lockstep, at 40 registers and 48 warps an SM, with a 66-entry stack in
+// local memory (the builders cap a tree at 64 levels, accel/bvh.py
+// MAX_DEPTH, and the Renderer asks for depth + 2). Measured on the card and left out because each made the
 // kernel slower (PERF.md gives the numbers): persistent warps with dynamic
 // ray fetch (Aila & Laine 2009), alone or with while-while passes, a
 // prefetched next batch or a refill threshold; a shared-memory stack; a
@@ -85,7 +92,7 @@ namespace {
 
 constexpr int kSentinel = 0x76543210;
 constexpr int kBlock = 128;
-constexpr int kMaxStack = 64;
+constexpr int kMaxStack = 66;
 // 12 blocks of 4 warps an SM: holds the kernel to 40 registers (without
 // it the counting word and the whole-warp exit take 42-47, which leaves
 // 40 warps an SM and was 1-3% slower on the card)
@@ -102,6 +109,7 @@ struct Rays {
   float tmin, tmax_scalar;
   const float* tmax_lane;
   int n_prefix;
+  const int* n_prefix_dev;
   const uint8_t* active;
   int n, stack_depth;
   int* out_slot;
@@ -121,7 +129,11 @@ __device__ __forceinline__ int trace_ray(const Rays& r, int i,
   int steps = 0;
   float hit_t = r.tmax_lane != nullptr ? r.tmax_lane[i] : r.tmax_scalar;
   int hit_slot = -1;
-  const bool act = r.active != nullptr ? r.active[i] != 0 : i < r.n_prefix;
+  const bool act =
+      r.active != nullptr
+          ? r.active[i] != 0
+          : i < (r.n_prefix_dev != nullptr ? __ldg(r.n_prefix_dev)
+                                           : r.n_prefix);
   if (act) {
     const float ox = r.orig[3 * i], oy = r.orig[3 * i + 1],
                 oz = r.orig[3 * i + 2];
@@ -272,7 +284,8 @@ int launch(cudaStream_t s, const Rays& r, int table_rows,
 // Plain C entry point for ctypes. Launches on `stream` and returns the
 // launch's error code (0 on success; a refused launch returns its code
 // here). tmax_lane and active may be null: then tmax_scalar, and the prefix
-// [0, n_prefix), are used. out_steps may be null; when it is not, the
+// [0, n_prefix), are used; n_prefix_dev, when not null, holds the prefix
+// (one int32 in device memory, read by the kernel) in place of n_prefix. out_steps may be null; when it is not, the
 // counting instantiation runs, and its warp-steps go to *warp_steps (one
 // 8-byte word, zeroed here on the stream). table_rows = 0 launches the
 // kernel that reads every row through __ldg; table_rows in
@@ -282,7 +295,7 @@ int launch(cudaStream_t s, const Rays& r, int table_rows,
 extern "C" int tpt_traverse(const void* table, const void* orig,
                             const void* dir, float tmin, float tmax_scalar,
                             const void* tmax_lane, int n_prefix,
-                            const void* active, int n, int stack_depth,
+                            const void* n_prefix_dev, const void* active, int n, int stack_depth,
                             int anyhit, int table_rows, void* out_slot,
                             void* out_t, void* out_steps, void* warp_steps,
                             void* stream) {
@@ -298,6 +311,7 @@ extern "C" int tpt_traverse(const void* table, const void* orig,
                tmax_scalar,
                static_cast<const float*>(tmax_lane),
                n_prefix,
+               static_cast<const int*>(n_prefix_dev),
                static_cast<const uint8_t*>(active),
                n,
                stack_depth,

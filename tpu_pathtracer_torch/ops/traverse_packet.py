@@ -20,6 +20,13 @@ through `__ldg`, "auto" whichever the measurements favour. Residency does
 not show in the result: slot, t and steps are the same bits either way, and
 on CPU tensors `table_mem` changes nothing.
 
+The live prefix (`active_prefix`) may be a 0-d int32 tensor on the rays'
+device, as the Pallas kernel takes a traced int32 by scalar prefetch: the
+kernel reads it from device memory and the host never does, so a launch
+captured in a CUDA graph follows the prefix that the kernels before it
+computed (tracer/regen.py). A lowering to a mask (a per-lane tmax) builds
+`arange(N) < prefix` on the device. An int prefix is passed by value.
+
 `count_steps=True` adds the step census, steps [N] i32, as a third output
 on both devices (the JAX function's return, `traverse_packet.py:1005`).
 It counts per ray: the rows the lane fetched, i.e. the steps in which its
@@ -42,7 +49,9 @@ from ..tracer.traverse import intersect_scene
 from .checks import require
 
 _SMEM_TABLE_BUDGET_BYTES = 700_000
-MAX_STACK_DEPTH = 64          # kMaxStack in csrc/traverse.cu
+# kMaxStack in csrc/traverse.cu: the deepest tree the builders make
+# (accel/bvh.py MAX_DEPTH = 64) plus the 2 that Renderer adds
+MAX_STACK_DEPTH = 66
 BLOCK = 128                   # kBlock
 TABLE_MAX_ROWS = 288          # kTableMaxRows: 12 blocks x 18 KB an SM
 # Rows the plan keeps in shared memory: the top 7 levels of the tree. On an
@@ -112,6 +121,16 @@ def _is_scalar(x):
     return not isinstance(x, torch.Tensor) or x.dim() == 0
 
 
+def _prefix(active_prefix, device):
+    """The prefix as the kernel takes it: an int, or a 0-d int32 tensor on
+    the rays' device, which is passed on and never read on the host (the
+    JAX kernel's traced int32, read by scalar prefetch)."""
+    if isinstance(active_prefix, torch.Tensor):
+        require(active_prefix, "active_prefix", device, torch.int32, ())
+        return active_prefix
+    return int(active_prefix)
+
+
 def _check_args(K, tmin, tmax, active, active_prefix, table_mem, step_mode,
                 queue_k, interleave, step_unroll, stack_depth, anyhit):
     if active_prefix is not None:
@@ -155,7 +174,9 @@ def packet_intersect(packed, orig, raydir, tmin, tmax, anyhit=False,
     """Traverse rays [N,3] against the packed (K,16) stream.
 
     tmin is a scalar; tmax a scalar or [N]. The active set is either a
-    mask `active` [N] bool or the lane prefix [0, active_prefix) (an int).
+    mask `active` [N] bool or the lane prefix [0, active_prefix): an int,
+    or a 0-d int32 tensor on the rays' device that the kernel reads from
+    device memory (no host read; a prefix outside [0, N] acts clamped).
     Returns (hit_slot [N] i32, hit_t [N] f32), plus steps [N] i32 with
     count_steps (see the module docstring); lanes outside the active set
     return (-1, tmax, 0). With anyhit=True a lane stops at its first
@@ -165,7 +186,7 @@ def packet_intersect(packed, orig, raydir, tmin, tmax, anyhit=False,
                 stack_depth, anyhit)
     N = orig.shape[0]
     if active_prefix is not None:
-        active_prefix = int(active_prefix)
+        active_prefix = _prefix(active_prefix, orig.device)
         if not _is_scalar(tmax):
             active = torch.arange(N, device=orig.device) < active_prefix
             active_prefix = None
@@ -189,8 +210,8 @@ def _lib():
     lib = load("traverse")
     if lib.tpt_traverse.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tpt_traverse.argtypes = [p, p, p, f, f, p, i, p, i, i, i, i, p,
-                                     p, p, p, p]
+        lib.tpt_traverse.argtypes = [p, p, p, f, f, p, i, p, p, i, i, i, i,
+                                     p, p, p, p, p]
         lib.tpt_traverse.restype = i
     return lib
 
@@ -216,8 +237,12 @@ def _prepare(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
     else:
         tmax_lane = tmax
         require(tmax_lane, "tmax", device, torch.float32, (N,))
+    prefix_dev = None
     if active is not None:
         require(active, "active", device, torch.bool, (N,))
+        n_prefix = 0
+    elif isinstance(active_prefix, torch.Tensor):
+        prefix_dev = _prefix(active_prefix, device)
         n_prefix = 0
     else:
         n_prefix = N if active_prefix is None else max(0, min(active_prefix,
@@ -244,7 +269,9 @@ def _prepare(packed, orig, raydir, tmin, tmax, anyhit, stack_depth, active,
     args = (packed.data_ptr(), orig.data_ptr(), raydir.data_ptr(),
             tmin, tmax_scalar,
             tmax_lane.data_ptr() if tmax_lane is not None else None,
-            n_prefix, active.data_ptr() if active is not None else None,
+            n_prefix,
+            prefix_dev.data_ptr() if prefix_dev is not None else None,
+            active.data_ptr() if active is not None else None,
             N, int(stack_depth), int(bool(anyhit)), table_rows,
             slot.data_ptr(), t.data_ptr(),
             steps.data_ptr() if count_steps else None,
@@ -292,7 +319,7 @@ def launch_fn(packed, orig, raydir, tmin, tmax, anyhit=False,
         raise ValueError("launch_fn: orig must lie on the current CUDA "
                          "device, not %s" % orig.device)
     if active_prefix is not None:
-        active_prefix = int(active_prefix)
+        active_prefix = _prefix(active_prefix, orig.device)
         if not _is_scalar(tmax):
             active = torch.arange(orig.shape[0], device=orig.device) \
                 < active_prefix

@@ -10,12 +10,16 @@ single-device render's; no collective runs during a frame.
 The JAX package runs the shards as one program under shard_map. Here they
 run one after another from the host, each on its device, and the image
 is assembled on the first device of the mesh. A mesh may name one device
-more than once: that is how one card runs several shards. There is no
+more than once: that is how one card runs several shards; shards on one
+card share the Renderer's captured regen wave (the same scene tensors, the
+same width), with lane0 a device input of each call. There is no
 multi-process (torch.distributed) layer, as the JAX package has none.
 """
 from __future__ import annotations
 
 import torch
+
+from ..tracer.renderer import camera_vector
 
 
 def make_mesh(devices=None):
@@ -78,7 +82,7 @@ class ShardedRenderer:
         for i, dev in enumerate(self.devices):
             lane0 = i * self.chunk
             sl = accum[lane0:lane0 + self.chunk].to(dev)
-            cam_vec = torch.as_tensor(camera.as_array(), device=dev)
+            cam_vec = camera_vector(camera, dev)
             acc, w, r = self.base._render_frames_chunk(
                 self._scenes[dev], cam_vec, int(frame_start), lane0, sl,
                 int(n_frames), with_stats)

@@ -9,7 +9,7 @@ For each k in --waves it freezes the regen pool of the chosen scene (the
 default TestObj scene, the ~135k-triangle large scene, or the
 ~105k-triangle organic blob with its subsurface or its jade-medium
 material; the first run builds the big scenes' SBVH into the cache) after
-k waves (`make_regen_integrator(stop_after_waves=k)`), traces
+k waves (`Renderer.regen_integrator(stop_after_waves=k)`), traces
 the pool's rays once with `count_steps=True` under the mask `active`, in
 closest hit (the extension trace) and in any hit (the form of the NEE
 shadow trace, on the same rays), and prints steps per ray: mean, p50, p95
@@ -126,10 +126,9 @@ def incoherent_rays(n, fb, seed, device):
 
 
 def freeze_pool(renderer, cam_vec, waves, spp):
-    """The regen pool after `waves` waves of frames 1..spp."""
-    from ..tracer.regen import make_regen_integrator
-    fn = make_regen_integrator(renderer.settings, renderer.width,
-                               renderer.height, stop_after_waves=waves)
+    """The regen pool after `waves` waves of frames 1..spp (the renderer's
+    own integrator for stop_after_waves=waves)."""
+    fn = renderer.regen_integrator(stop_after_waves=waves)
     return fn(renderer.scene, cam_vec, 1, 0, renderer.zeros_accum(), spp)
 
 

@@ -6,22 +6,45 @@ of a later frame. The RNG is counter-based per (frame, pixel), so every
 sample gets the same random stream, and so the same value, as in the JAX
 package, whatever wave it runs in.
 
+A render call is one device program, as the JAX package's `while_loop`
+(tpu_pathtracer/tracer/regen.py:197-212) makes it: every wave
+(`regen_wave`: respawn, one wavefront segment, the compaction permute, the
+dead-row flush) works on all P lanes with fixed shapes, keeps every count
+(samples spawned, paths alive, waves, rays) as a device scalar and reads
+nothing on the host. Each wave ends by writing its status (done, paths
+alive, samples left in the queue). On a CUDA device the wave is captured
+once as a CUDA graph (`_WaveGraph`) and replayed; the host learns that the
+call is done from an asynchronous copy of the status into pinned memory,
+checked with an event, with at most two waves in flight, so one wave past
+the end is replayed. A wave after the end is an exact no-op: it spawns
+nothing, traces an empty prefix and adds zeros. The CPU runs the same
+waves eagerly, and so does the card inside `no_graphs()`, the counterpart
+of `jax.disable_jit()`.
+
+The drain. Once the queue is spent the live count can only fall, so a
+status that is two waves old bounds it from above; under the compact
+order the live lanes are the prefix [0, alive), and a wave over the first
+w rows of every column (views, the same addresses) gives the full-width
+wave's bits when alive <= w. The host then runs the narrowest of the
+widths P, P/4 and P/16 (DRAIN_DIVS) that holds the stale count, each
+width captured once. A full-width wave at P = 1M lanes costs ~14 ms of
+device time on an H100, one of 65k lanes ~5.5 ms: the ~1,750 kernels of a
+wave are mostly elementwise passes over the pool.
+
 regen_order="compact" (the default): after every wave the survivors are
 stable-sorted to the front (key: hit slot major, direction octant minor,
-dead lanes last), so the live lanes are always the exact prefix
-[0, alive) and every population count is a host integer. A wave therefore
-works on the views [0, n_active) and needs one device-to-host read, for
-the number of paths that finished; that read is where CUDA graphs could
-later take the loop over. regen_permute="gather" moves the pool by one
-row gather of its packed columns; "sort" carries the vector state (orig,
-dir, mask, L) as per-channel planes [3,P] and moves every plane and
-column by the same stable sort order, with the same bits as "gather".
+dead lanes and the lanes past the live prefix last), so the live lanes are
+always the exact prefix [0, alive). The extension trace takes that prefix
+as a 0-d int32 device tensor, which the traversal kernel reads from device
+memory; every other stage takes the live mask. regen_permute="gather"
+moves the pool by one row gather of its packed columns; "sort" carries the
+vector state (orig, dir, mask, L) as per-channel planes [3,P] and moves
+every plane and column by the same stable sort order, with the same bits
+as "gather".
 
 regen_order="inplace": the pool is never compacted. The live set is a
-mask, every wave runs over all P lanes (traces take `active=`, no
-prefix), and the dead lanes take the next queue samples in lane order.
-The host still knows every count (alive, spawned), so the wave keeps its
-one host read.
+mask, traces take `active=`, and the dead lanes take the next queue
+samples in lane order, ranked by a cumulative sum of the dead mask.
 
 How radiance reaches the image. The JAX package's 1024-way accumulation
 swizzle, ring buffer, rung ladder and dense fresh-death flush all work
@@ -29,7 +52,8 @@ around the cost of XLA's scatter on a TPU; they change how radiance
 reaches the image, not what it sums to. Here scatter_mode "ring" and
 "deferred" bank each path's radiance L on its lane and index_add_ it into
 the image when the path dies (after compaction the lanes that died this
-wave are the rows [alive, n_active)); "wave" index_add_s every lane's
+wave are the rows [alive, n_active); the add covers all P rows, with +0.0
+on the others, which keeps every bit); "wave" index_add_s every lane's
 contribution every wave, and so does every inplace render: as in the JAX
 package, banking needs the compacted dead tail. The three give the same
 image up to float addition order (CUDA index_add_ adds with atomics). `dense_fresh_flush`
@@ -54,9 +78,16 @@ the image keeps its bits while the frame pays for the stage twice;
 tools/profile_frame.py --dup prices each stage so. The stages are those of
 DUP_STAGES; `scatter` duplicates each index_add_ into a scratch image that
 is then dropped, and `texture`, `shade`, `sample_env` and `shadow_trace`
-are duplicated inside wavefront.shade_hits.
+are duplicated inside wavefront.shade_hits. Under CUDA graphs a stage's
+price is device time: the host no longer dispatches each kernel.
 """
 from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import functools
+import time
 
 import torch
 
@@ -73,6 +104,41 @@ from .renderer import generate_camera_rays, lane_pixel_xy
 # the JAX regen's dup_stage names (tpu_pathtracer/tracer/regen.py)
 DUP_STAGES = ("respawn", "ext_trace", "fetch", "envmiss", "texture", "shade",
               "sample_env", "shadow_trace", "scatter", "permute")
+# waves in flight: the host replays wave i once it has seen the flag of
+# wave i - LAG
+LAG = 2
+# the drain's narrower widths, P // d for each d (compact order only)
+DRAIN_DIVS = (4, 16)
+WARMUP_WAVES = 3      # eager waves on a side stream before a capture
+# what a ring slot holds before its wave's status lands: not done, the
+# queue not spent, so the host runs the next wave at full width (a wave
+# after the end is a no-op)
+_UNSEEN = (0, 1 << 62, 1)
+_NO_GRAPHS = [0]
+# one memory pool a device for every captured wave: a wave keeps its whole
+# state in tensors allocated outside the capture, so what it allocates
+# inside is dead when its replay ends, and the replays of one device
+# follow one another on its stream
+_POOLS = {}
+
+
+@contextlib.contextmanager
+def no_graphs():
+    """Inside the block every regen render runs its waves eagerly, one
+    kernel launch after another, on the card as on the CPU: the
+    counterpart of `jax.disable_jit()`. The waves and the image are the
+    same; only the dispatch differs."""
+    _NO_GRAPHS[0] += 1
+    try:
+        yield
+    finally:
+        _NO_GRAPHS[0] -= 1
+
+
+def graphs_enabled(device):
+    """Whether a render on `device` replays captured waves: on a CUDA
+    device outside no_graphs()."""
+    return torch.device(device).type == "cuda" and not _NO_GRAPHS[0]
 
 
 def _check_settings(settings: RenderSettings):
@@ -97,13 +163,593 @@ def _check_settings(settings: RenderSettings):
                          % (settings.dup_stage, ", ".join(DUP_STAGES)))
 
 
+@dataclasses.dataclass(frozen=True)
+class WaveConfig:
+    """What a wave's shapes and code depend on: the settings, the image
+    size, the flags of the integrator, and N (lanes of the call's image
+    slice) and P (pool lanes)."""
+    settings: RenderSettings
+    width: int
+    height: int
+    with_stats: bool
+    stop_after_waves: int
+    N: int
+    P: int
+
+    @property
+    def inplace(self):
+        return self.settings.regen_order == "inplace"
+
+    @property
+    def sort_mode(self):
+        return self.settings.regen_permute == "sort"
+
+    @property
+    def deferred(self):
+        # as in the JAX package, banking radiance on the path needs the
+        # compacted dead tail: an inplace render adds every wave
+        return (self.settings.scatter_mode in ("ring", "deferred")
+                and not self.inplace)
+
+
+def new_state(cfg: WaveConfig, device):
+    """The tensors a wave reads and writes in place: the pool columns, the
+    device scalars (next, alive, waves, rays, tot, frame0, lane0), the
+    status a wave ends with (int64 [done, alive, samples left]), the camera
+    vector, the image slice `accum` [N,3] and, for dup_stage="scatter", a
+    scratch image. Filled by reset()."""
+    P, N = cfg.P, cfg.N
+    f32 = dict(dtype=torch.float32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    vshape = (3, P) if cfg.sort_mode else (P, 3)
+    st = {k: torch.empty(vshape, **f32) for k in ("orig", "dir", "mask",
+                                                   "L")}
+    st.update(bsdf_pdf=torch.empty((P,), **f32),
+              rng=torch.empty((P,), **i64), pixel=torch.empty((P,), **i64),
+              lbn=torch.empty((P,), **i32), bounce=torch.empty((P,), **i32),
+              medium_id=torch.empty((P,), **i32),
+              active=torch.empty((P,), dtype=torch.bool, device=device),
+              lane=torch.arange(P, **i64),
+              rays=torch.empty((), dtype=torch.float64, device=device),
+              status=torch.empty((3,), **i64),
+              cam_vec=torch.empty((16,), **f32),
+              accum=torch.empty((N, 3), **f32),
+              scratch=torch.empty((N, 3), **f32)
+              if cfg.settings.dup_stage == "scatter" else None,
+              light=distant_light(cfg.settings, device))
+    for k in ("next", "alive", "waves", "tot", "frame0", "lane0"):
+        st[k] = torch.empty((), **i64)
+    return st
+
+
+def narrow(cfg: WaveConfig, st, w):
+    """(cfg, state) of a wave over the first w lanes of the pool: views of
+    the first w rows of every column (the same addresses), the scalars,
+    the camera and the image shared. Under the compact order, with the
+    queue spent and at most w paths alive, a wave on it gives the
+    full-width wave's bits."""
+    if w == cfg.P:
+        return cfg, st
+    sub = dict(st)
+    for k in ("orig", "dir", "mask", "L"):
+        sub[k] = st[k][:, :w] if cfg.sort_mode else st[k][:w]
+    for k in ("bsdf_pdf", "rng", "pixel", "lbn", "bounce", "medium_id",
+              "active", "lane"):
+        sub[k] = st[k][:w]
+    return dataclasses.replace(cfg, P=w), sub
+
+
+def drain_widths(cfg: WaveConfig):
+    """The widths a call's waves run at: P, and under the compact order
+    the narrower P // d of DRAIN_DIVS (at least 1 lane)."""
+    if cfg.inplace:
+        return (cfg.P,)
+    return tuple(sorted({cfg.P} | {max(cfg.P // d, 1)
+                                   for d in DRAIN_DIVS}))
+
+
+def reset(cfg: WaveConfig, st, cam_vec, frame0, lane0, accum, n_frames):
+    """Start a call on state st: an empty pool, the counts at 0, the
+    call's inputs copied in (tot = N * n_frames samples). Device work
+    only: fills and device copies."""
+    for k in ("orig", "dir", "mask", "L", "rng", "pixel", "lbn", "bounce",
+              "next", "alive", "waves", "rays"):
+        st[k].zero_()
+    st["bsdf_pdf"].fill_(-1.0)
+    st["medium_id"].fill_(-1)
+    st["active"].zero_()
+    st["status"].zero_()
+    st["tot"].fill_(cfg.N * int(n_frames))
+    st["frame0"].fill_(int(frame0))
+    st["lane0"].fill_(int(lane0))
+    st["cam_vec"].copy_(cam_vec)
+    if accum is None:
+        st["accum"].zero_()
+    else:
+        st["accum"].copy_(accum)
+    if st["scratch"] is not None:
+        st["scratch"].zero_()
+
+
+def _add_to_image(st, idx, val):
+    st["accum"].index_add_(0, idx, val)
+    if st["scratch"] is not None:
+        st["scratch"].index_add_(0, idx, val * 1.0000001)
+
+
+def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
+             active, prefix, light):
+    """One wavefront segment over all P lanes: `active` is the live mask;
+    `prefix` (compact order) the live prefix as a 0-d int32 device tensor,
+    which the extension trace takes. Returns the new (o, d, m, pdf, rng,
+    lbn, bounce, medium_id), this wave's radiance, the finished mask, the
+    hit slots and the count of shadow rays traced (a device scalar, 0
+    without with_stats)."""
+    settings = cfg.settings
+    dup = settings.dup_stage
+    hit_slot, hit_t = trace_rays(
+        scene, settings, o, d, RAY_MIN, RAY_MAX, anyhit=False,
+        active=active, active_prefix=prefix)
+    if dup == "ext_trace":
+        _, ht2 = trace_rays(scene, settings, o, d, RAY_MIN * 1.0000001,
+                            RAY_MAX, anyhit=False, active=active,
+                            active_prefix=prefix)
+        hit_t = plus_zero_times(hit_t, ht2)
+    if settings.has_media:
+        r, o, d, m, sampled_medium = medium_interaction(
+            scene, r, o, d, m, hit_t, mid, active)
+        lbn_a = torch.where(
+            sampled_medium,
+            torch.clamp_max(lbn_a + 1, settings.bounce_max), lbn_a)
+        miss = active & ~sampled_medium & (hit_t > 1e10)
+    else:
+        miss = active & (hit_t > 1e10)
+    hitpoint = o + d * hit_t[:, None]
+    hit_uv, smooth_n, mat_id, tri_n = fetch_attributes(
+        scene, hit_slot, hitpoint)
+    if dup == "fetch":
+        hit_uv, smooth_n, mat_id, tri_n = (
+            plus_zero_times(x, x2) for x, x2 in zip(
+                (hit_uv, smooth_n, mat_id, tri_n),
+                fetch_attributes(scene, hit_slot, hitpoint + 1e-7)))
+    merged_et = (settings.merge_envtex and settings.use_texture
+                 and settings.use_envmap
+                 and settings.env_importance_sampling
+                 and "envtex_quad" in scene)
+    if merged_et:
+        env, tex_rgb = env_tex_merged(scene, settings, d, pdf_prev,
+                                      cam_vec[15], miss, hit_uv)
+        if dup in ("envmiss", "texture"):
+            # hit_uv perturbed too: it feeds the gather's row index
+            e2, t2 = env_tex_merged(scene, settings, d, pdf_prev + 1e-7,
+                                    cam_vec[15], miss, hit_uv + 1e-7)
+            env = plus_zero_times(env, e2)
+            tex_rgb = plus_zero_times(tex_rgb, t2)
+    else:
+        tex_rgb = None
+        env = env_miss_weighted(scene, settings, d, pdf_prev, cam_vec[15])
+        if dup == "envmiss":
+            env = plus_zero_times(env, env_miss_weighted(
+                scene, settings, d, pdf_prev + 1e-7, cam_vec[15]))
+    contrib = torch.where(miss[:, None], m * env, 0.0)
+    surf = ~miss & ~sampled_medium if settings.has_media else ~miss
+    surf = active & surf
+
+    hit = (hit_uv, smooth_n, mat_id, tri_n, hitpoint)
+    (r, o, d, m, pdf_new, lb, mid, contrib, ended, n_shadow) = shade_hits(
+        scene, settings, r, o, d, m, pdf_prev, lbn_a, mid, surf, hit,
+        tex_rgb, contrib, cam_vec[15], light, count_rays=cfg.with_stats,
+        dup_stage=dup)
+    bn = torch.where(active, bn_prev + 1, bn_prev)
+    finished = active & (miss | ended | (bn >= lb)
+                         | (bn >= settings.bounce_max))
+    return (o, d, m, pdf_new, r, lb, bn, mid, contrib, finished, hit_slot,
+            n_shadow)
+
+
+def regen_wave(cfg: WaveConfig, scene, st):
+    """One wave on the state st, in place: respawn, one wavefront segment,
+    the compaction permute and the dead-row flush, over all P lanes.
+    Every shape is fixed and nothing is read on the host, so the same call
+    runs eagerly or captured in a CUDA graph. Once the call's samples are
+    done (or stop_after_waves waves have run) a wave changes no bit of the
+    state: it spawns nothing, traces an empty prefix and adds zeros."""
+    s = cfg.settings
+    P, N, dup = cfg.P, cfg.N, s.dup_stage
+    lane, live = st["lane"], st["active"]
+    nxt, alive, waves, tot = st["next"], st["alive"], st["waves"], st["tot"]
+    go = (nxt < tot) | (alive > 0)
+    if cfg.stop_after_waves:
+        go = go & (waves < cfg.stop_after_waves)
+
+    # ---- respawn: dead lanes take the next samples of the queue, in
+    # order: the dead suffix [alive, P) under compact, the dead lanes in
+    # lane order under inplace ----
+    n_spawn = torch.where(
+        go, torch.minimum(torch.clamp_min(tot - nxt, 0), P - alive), 0)
+    if cfg.inplace:
+        dead = ~live
+        rank = torch.cumsum(dead, 0) - dead.to(torch.int64)
+        spawn = dead & (rank < n_spawn)
+    else:
+        rank = lane - alive
+        spawn = (rank >= 0) & (rank < n_spawn)
+    sid = nxt + rank
+    pixel_new = sid % N
+    pixel_glob = pixel_new + st["lane0"]
+    rng_new = RaySampler.init(wang_hash(st["frame0"] + sid // N), pixel_glob)
+    pxi, pyi = lane_pixel_xy(pixel_glob, cfg.width, cfg.height)
+    px, py = pxi.to(torch.float32), pyi.to(torch.float32)
+    rng_new, o_new, d_new = generate_camera_rays(st["cam_vec"], rng_new, px,
+                                                 py)
+    if dup == "respawn":
+        r2, o2, d2 = generate_camera_rays(st["cam_vec"], rng_new, px + 1e-6,
+                                          py)
+        o_new = plus_zero_times(o_new,
+                                o2 + d2 + r2[:, None].to(torch.float32))
+    if cfg.sort_mode:
+        sel, o_new, d_new = spawn[None, :], o_new.t(), d_new.t()
+    else:
+        sel = spawn[:, None]
+    torch.where(sel, o_new, st["orig"], out=st["orig"])
+    torch.where(sel, d_new, st["dir"], out=st["dir"])
+    st["mask"].masked_fill_(sel, 1.0)
+    st["L"].masked_fill_(sel, 0.0)
+    st["bsdf_pdf"].masked_fill_(spawn, -1.0)
+    torch.where(spawn, rng_new, st["rng"], out=st["rng"])
+    torch.where(spawn, pixel_new, st["pixel"], out=st["pixel"])
+    st["lbn"].masked_fill_(spawn, s.bounce_min)
+    st["bounce"].masked_fill_(spawn, 0)
+    st["medium_id"].masked_fill_(spawn, -1)
+    torch.logical_or(live, spawn, out=live)
+    nxt.add_(n_spawn)
+    n_act = torch.where(go, alive + n_spawn, 0)
+    act = live & go
+    if cfg.with_stats:
+        st["rays"].add_(n_act)
+
+    # ---- one wavefront segment over all P lanes: the extension trace
+    # over the live prefix (compact) or the live mask (inplace), every
+    # other stage under the live mask ----
+    def vec(k):
+        return st[k].t().contiguous() if cfg.sort_mode else st[k]
+    (o, d, m, pdf_new, r, lb, bn, mid, contrib, finished, hit_slot,
+     n_shadow) = _segment(
+        cfg, scene, st["cam_vec"], vec("orig"), vec("dir"), vec("mask"),
+        st["bsdf_pdf"], st["rng"], st["lbn"], st["bounce"], st["medium_id"],
+        act, None if cfg.inplace else n_act.to(torch.int32), st["light"])
+    # the segment draws random numbers on every lane: the lanes outside
+    # the live set keep their state
+    r = torch.where(act, r, st["rng"])
+    if cfg.with_stats:
+        st["rays"].add_(n_shadow)
+    if cfg.deferred:
+        ell = vec("L") + contrib
+    else:
+        _add_to_image(st, st["pixel"], contrib)
+        ell = vec("L")
+    alive_new = torch.where(go, n_act - finished.sum(), alive)
+    waves.add_(go.to(torch.int64))
+
+    if cfg.inplace:
+        for k, v in (("orig", o), ("dir", d), ("mask", m),
+                     ("bsdf_pdf", pdf_new), ("rng", r), ("lbn", lb),
+                     ("bounce", bn), ("medium_id", mid)):
+            st[k].copy_(v)
+        torch.logical_and(live, ~finished, out=live)
+    else:
+        _compact(cfg, st, o, d, m, pdf_new, ell, r, lb, bn, mid,
+                 finished | ~act, hit_slot)
+        torch.lt(lane, alive_new, out=live)
+        if cfg.deferred:
+            # the paths that died this wave are now rows [alive, n_act)
+            died = (lane >= alive_new) & (lane < n_act)
+            _add_to_image(st, st["pixel"],
+                          torch.where(died[:, None], vec("L"), 0.0))
+    alive.copy_(alive_new)
+    more = (nxt < tot) | (alive > 0)
+    if cfg.stop_after_waves:
+        more = more & (waves < cfg.stop_after_waves)
+    torch.stack([(~more).to(torch.int64), alive, tot - nxt],
+                out=st["status"])
+
+
+def _compact(cfg, st, o, d, m, pdf_new, ell, r, lb, bn, mid, last,
+             hit_slot):
+    """Survivors (hit slot major, octant minor) to the front; the lanes
+    `last` (dead this wave, or outside the live set) after them in lane
+    order, so that the rows past the live prefix stay where they are.
+    Writes every pool column in place."""
+    dup = cfg.settings.dup_stage
+    oct_ = ((d[:, 0] < 0).to(torch.int32)
+            | ((d[:, 1] < 0).to(torch.int32) << 1)
+            | ((d[:, 2] < 0).to(torch.int32) << 2))
+    key = torch.where(last, 2 ** 30,
+                      (torch.clamp_min(hit_slot, 0) << 3) | oct_)
+    if cfg.sort_mode:
+        # one stable sort order moves every plane and column
+        src = torch.sort(key, stable=True)[1]
+        src2 = (torch.sort(key + 1, stable=True)[1]
+                if dup == "permute" else None)
+
+        def move(v):
+            if src2 is None:
+                return v[..., src]
+            return plus_zero_times(v[..., src], v[..., src2])
+        for k, v in (("orig", o), ("dir", d), ("mask", m), ("L", ell)):
+            st[k].copy_(move(v.t()))
+        for k, v in (("bsdf_pdf", pdf_new), ("rng", r),
+                     ("pixel", st["pixel"]), ("lbn", lb), ("bounce", bn),
+                     ("medium_id", mid)):
+            st[k].copy_(move(v))
+        return
+    # one row gather moves the packed pool; int32 bits:
+    # orig 0:3 | dir 3:6 | mask 6:9 | bsdf_pdf 9 | L 10:13 |
+    # rng 13 | pixel 14 | lbn + bounce<<8 + (medium_id+1)<<16 15
+    src = torch.argsort(key, stable=True)
+    pmat = torch.cat([
+        o.view(torch.int32), d.view(torch.int32), m.view(torch.int32),
+        pdf_new[:, None].contiguous().view(torch.int32),
+        ell.view(torch.int32), r.to(torch.int32)[:, None],
+        st["pixel"].to(torch.int32)[:, None],
+        (lb | (bn << 8) | ((mid + 1) << 16))[:, None]], dim=1)
+    pmat = (plus_zero_times(pmat[src], pmat[src])
+            if dup == "permute" else pmat[src])
+    for k, a, b in (("orig", 0, 3), ("dir", 3, 6), ("mask", 6, 9),
+                    ("L", 10, 13)):
+        st[k].view(torch.int32).copy_(pmat[:, a:b])
+    st["bsdf_pdf"].view(torch.int32).copy_(pmat[:, 9])
+    torch.bitwise_and(pmat[:, 13].to(torch.int64), MASK32, out=st["rng"])
+    st["pixel"].copy_(pmat[:, 14])
+    torch.bitwise_and(pmat[:, 15], 0xFF, out=st["lbn"])
+    torch.bitwise_and(pmat[:, 15] >> 8, 0xFF, out=st["bounce"])
+    torch.sub(pmat[:, 15] >> 16, 1, out=st["medium_id"])
+
+
+def _launch_counts():
+    from ..ops import traverse_packet as tp
+    return {**tp.LAUNCHES, **tp.FORM_LAUNCHES}
+
+
+def _set_launch_counts(counts):
+    from ..ops import traverse_packet as tp
+    for table in (tp.LAUNCHES, tp.FORM_LAUNCHES):
+        for k in table:
+            table[k] = counts[k]
+
+
+def _add_launches(launches):
+    """Add the per-wave launches recorded at a capture to the traversal's
+    launch counts (ops.traverse_packet.LAUNCHES and FORM_LAUNCHES)."""
+    from ..ops import traverse_packet as tp
+    for table in (tp.LAUNCHES, tp.FORM_LAUNCHES):
+        for k in table:
+            table[k] += launches.get(k, 0)
+
+
+def _capture(step, device):
+    """Run step() WARMUP_WAVES times on a side stream, then capture one
+    call of it as a CUDA graph. Returns (graph, launches): the kernel
+    launches that one call counts (ops.traverse_packet's counts), which
+    every replay adds again. The warm-up and the capture are set-up: the
+    launch counts are left as they were before them."""
+    saved = _launch_counts()
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_WAVES):
+                step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        pool = _POOLS.setdefault(str(device), torch.cuda.graph_pool_handle())
+        before = _launch_counts()
+        with torch.cuda.graph(graph, pool=pool):
+            step()
+    after = _launch_counts()
+    _set_launch_counts(saved)
+    return graph, {k: after[k] - before[k] for k in after
+                   if after[k] != before[k]}
+
+
+class _WaveGraph:
+    """A call's wave captured on a device at each of its drain widths, with
+    its own state (the graphs' static tensors; the narrower waves work on
+    views of it). The scene tensors it reads are kept alive."""
+
+    def __init__(self, cfg, scene, device):
+        self.scene = scene
+        self.st = new_state(cfg, device)
+        # the state of a finished call: the warm-up waves change nothing
+        reset(cfg, self.st, torch.zeros(16, device=device), 0, 0, None, 0)
+        self.graphs, self.launches, self.capture_s = {}, {}, 0.0
+        for w in drain_widths(cfg):
+            cfg_w, st_w = narrow(cfg, self.st, w)
+            t0 = time.perf_counter()
+            self.graphs[w], self.launches[w] = _capture(
+                functools.partial(regen_wave, cfg_w, scene, st_w), device)
+            self.capture_s += time.perf_counter() - t0
+        self.flags, self.events = _status_ring(device)
+
+    def steps(self):
+        """{width: replay}: each replay adds its wave's launches."""
+        def replay(w):
+            def run():
+                self.graphs[w].replay()
+                _add_launches(self.launches[w])
+            return run
+        return {w: replay(w) for w in self.graphs}
+
+
+def _status_ring(device):
+    """(flags, events) for _drive: LAG + 1 host copies of a wave's status,
+    pinned with an event each on a CUDA device, plain (events None) on the
+    CPU."""
+    if torch.device(device).type != "cuda":
+        return [torch.zeros((3,), dtype=torch.int64)
+                for _ in range(LAG + 1)], None
+    return ([torch.zeros((3,), dtype=torch.int64, pin_memory=True)
+             for _ in range(LAG + 1)],
+            [torch.cuda.Event() for _ in range(LAG + 1)])
+
+
+def _drive(steps, status, flags, events):
+    """Run waves until the status (the device int64 [done, alive, samples
+    left] that every wave writes) reads done. steps: {width: run one wave
+    at that width}. Before wave i the host waits for wave i - LAG's status,
+    copied without blocking into the host tensor flags[j] (pinned memory
+    on the card) and marked by events[j] (None on the CPU), recorded on
+    the stream of the status's device; with the queue spent it runs the
+    narrowest width that holds that wave's live count. Every slot starts
+    the call as _UNSEEN, so a slot that still holds an earlier call's
+    status is never read as this call's. Returns {width: waves run}
+    (LAG - 1 of them after the end when the call runs at least one
+    wave)."""
+    unseen = torch.tensor(_UNSEEN, dtype=torch.int64)
+    for f in flags:
+        f.copy_(unseen)
+    stream = None if events is None \
+        else torch.cuda.current_stream(status.device)
+    widths = sorted(steps)
+    ran = collections.Counter()
+    i = 0
+    while True:
+        w = widths[-1]
+        if i >= LAG:
+            j = (i - LAG) % (LAG + 1)
+            if events is not None:
+                events[j].synchronize()
+            done, alive, left = flags[j].tolist()
+            if done:
+                return dict(ran)
+            if left == 0:
+                w = min(x for x in widths if x >= alive)
+        steps[w]()
+        ran[w] += 1
+        j = i % (LAG + 1)
+        flags[j].copy_(status, non_blocking=True)
+        if events is not None:
+            events[j].record(stream)
+        i += 1
+
+
+def capture_key(N, device, scene):
+    """What a captured wave depends on besides the integrator's settings
+    and flags: the device, the lanes N of the call's image slice, torch's
+    deterministic mode (index_add_ takes another path under it) and the
+    identity of the scene's tensors (the graph reads their addresses)."""
+    import torch.utils.deterministic as tud
+    return (str(torch.device(device)), int(N),
+            torch.are_deterministic_algorithms_enabled(),
+            bool(tud.fill_uninitialized_memory),
+            tuple((k, ("tensor", id(v)) if isinstance(v, torch.Tensor)
+                   else repr(v)) for k, v in sorted(scene.items())))
+
+
+class RegenIntegrator:
+    """integrate_frames of make_regen_integrator, with the wave its last
+    replayed call captured (`graph`, a _WaveGraph for one capture_key;
+    a call of another key captures anew) and the waves its last call ran
+    at each width (`last_waves`, over-run waves included)."""
+
+    def __init__(self, settings, width, height, with_stats=False,
+                 stop_after_waves=0):
+        _check_settings(settings)
+        stop_after_waves = int(stop_after_waves)
+        if stop_after_waves < 0:
+            raise ValueError("stop_after_waves must be >= 0, got %d"
+                             % stop_after_waves)
+        self.settings = settings
+        self.width, self.height = int(width), int(height)
+        self.with_stats = bool(with_stats)
+        self.stop_after_waves = stop_after_waves
+        self.graph, self._graph_key = None, None
+        self.last_waves = {}
+
+    def _config(self, N, n_frames):
+        P = N if self.settings.pool_lanes <= 0 \
+            else min(self.settings.pool_lanes, N)
+        if N * int(n_frames) >= 2 ** 32:
+            raise ValueError("at most 2^32 samples per call (the sample id "
+                             "is a uint32 in the RNG seed)")
+        return WaveConfig(self.settings, self.width, self.height,
+                          self.with_stats, self.stop_after_waves, int(N), P)
+
+    def start(self, scene, cam_vec, frame0, lane0, accum, n_frames):
+        """(cfg, st): a fresh eager state for a call, before its first
+        wave; regen_wave(cfg, scene, st) steps it by hand."""
+        cfg = self._config(accum.shape[0], n_frames)
+        st = new_state(cfg, accum.device)
+        reset(cfg, st, cam_vec, frame0, lane0, accum, n_frames)
+        return cfg, st
+
+    def __call__(self, scene, cam_vec, frame0, lane0, accum, n_frames):
+        device = accum.device
+        # the call's streams, events and captures are its device's, whatever
+        # device is current
+        with (torch.cuda.device(device) if device.type == "cuda"
+              else contextlib.nullcontext()):
+            return self._run(scene, cam_vec, frame0, lane0, accum, n_frames)
+
+    def _run(self, scene, cam_vec, frame0, lane0, accum, n_frames):
+        device = accum.device
+        replay = graphs_enabled(device)
+        if replay:
+            cfg = self._config(accum.shape[0], n_frames)
+            key = capture_key(cfg.N, device, scene)
+            if key != self._graph_key:
+                self.graph = None            # its memory goes before the next
+                self.graph = _WaveGraph(cfg, scene, device)
+                self._graph_key = key
+            st, steps = self.graph.st, self.graph.steps()
+            ring = (self.graph.flags, self.graph.events)
+            reset(cfg, st, cam_vec, frame0, lane0, accum, n_frames)
+        else:
+            cfg, st = self.start(scene, cam_vec, frame0, lane0, accum,
+                                 n_frames)
+            steps = {}
+            for w in drain_widths(cfg):
+                cfg_w, st_w = narrow(cfg, st, w)
+                steps[w] = functools.partial(regen_wave, cfg_w, scene, st_w)
+            ring = _status_ring(device)
+        self.last_waves = {}
+        if int(n_frames) > 0 and cfg.N > 0:
+            self.last_waves = _drive(steps, st["status"], *ring)
+        return self._result(st, copy=replay)
+
+    def _result(self, st, copy):
+        """The call's output from its state; copy: clone what the next call
+        overwrites (a captured wave's static tensors)."""
+        def out(t):
+            return t.clone() if copy else t
+        if self.stop_after_waves:
+            sort_mode = self.settings.regen_permute == "sort"
+            vec = {k: (st[k].t() if sort_mode else st[k]).clone()
+                   for k in ("orig", "dir", "mask", "L")}
+            live = st["active"].clone()
+            vec["L"] = torch.where(live[:, None], vec["L"], 0.0)
+            return {**vec, **{k: out(st[k]) for k in (
+                "bsdf_pdf", "rng", "pixel", "lbn", "bounce", "medium_id")},
+                "active": live, "waves": int(st["waves"]),
+                "next": int(st["next"]), "alive": int(st["alive"])}
+        if self.with_stats:
+            return out(st["accum"]), int(st["waves"]), float(st["rays"])
+        return out(st["accum"]), st["waves"].clone()
+
+
 def make_regen_integrator(settings: RenderSettings, width, height,
                           with_stats=False, stop_after_waves=0):
     """Returns integrate_frames(scene, cam_vec, frame0, lane0, accum,
     n_frames) -> (accum, waves) or, with with_stats, (accum, waves, rays):
-    accum plus n_frames samples per pixel, the number of waves, and the
-    number of rays traced (extension + NEE shadow). lane0 is the global
-    lane offset of this image slice (0 for a whole image).
+    accum plus n_frames samples per pixel, the number of waves (a host int
+    with with_stats, else a 0-d int64 device tensor, which the host need
+    not read), and the number of rays traced (extension + NEE shadow).
+    lane0 is the global lane offset of this image slice (0 for a whole
+    image). integrate_frames is a RegenIntegrator: on a CUDA device it
+    captures its wave once for a capture_key (device, lanes, deterministic
+    mode, scene tensors) and replays it while the calls keep that key (see
+    the module docstring).
 
     With stop_after_waves=k > 0 the loop ends after k waves (or earlier,
     when every sample is done) and integrate_frames returns the pool as it
@@ -113,283 +759,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
     bounce, medium_id [P] i32 (medium_id: the material whose medium the
     lane is inside, -1 outside any); active [P] bool, the prefix
     [0, alive) under the compact order and a mask under inplace; and the
-    host integers waves, next (samples spawned) and alive. L is 0 outside
-    the active set, as in JAX; the other fields of dead rows are stale."""
-    _check_settings(settings)
-    stop_after_waves = int(stop_after_waves)
-    if stop_after_waves < 0:
-        raise ValueError("stop_after_waves must be >= 0, got %d"
-                         % stop_after_waves)
-    inplace = settings.regen_order == "inplace"
-    sort_mode = settings.regen_permute == "sort"
-    # as in the JAX package, banking radiance on the path needs the
-    # compacted dead tail: an inplace render adds every wave
-    deferred = (settings.scatter_mode in ("ring", "deferred")
-                and not inplace)
-    dup = settings.dup_stage
-
-    def _and(active, x):
-        return x if active is None else active & x
-
-    def wave(scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
-             active, light):
-        """One wavefront segment. active is None when every lane is live
-        (the compact prefix, traced as a prefix) or a mask (inplace).
-        Returns the new (o, d, m, pdf, rng, lbn, bounce, medium_id), this
-        wave's radiance, the finished mask, the hit slots and the count of
-        shadow rays traced (a device scalar, 0 without with_stats)."""
-        n = o.shape[0]
-        live = active if active is not None else torch.ones(
-            (n,), dtype=torch.bool, device=o.device)
-        prefix = n if active is None else None
-        hit_slot, hit_t = trace_rays(
-            scene, settings, o, d, RAY_MIN, RAY_MAX, anyhit=False,
-            active=live, active_prefix=prefix)
-        if dup == "ext_trace":
-            _, ht2 = trace_rays(scene, settings, o, d, RAY_MIN * 1.0000001,
-                                RAY_MAX, anyhit=False, active=live,
-                                active_prefix=prefix)
-            hit_t = plus_zero_times(hit_t, ht2)
-        if settings.has_media:
-            r, o, d, m, sampled_medium = medium_interaction(
-                scene, r, o, d, m, hit_t, mid, live)
-            lbn_a = torch.where(
-                sampled_medium,
-                torch.clamp_max(lbn_a + 1, settings.bounce_max), lbn_a)
-            miss = _and(active, ~sampled_medium & (hit_t > 1e10))
-        else:
-            miss = _and(active, hit_t > 1e10)
-        hitpoint = o + d * hit_t[:, None]
-        hit_uv, smooth_n, mat_id, tri_n = fetch_attributes(
-            scene, hit_slot, hitpoint)
-        if dup == "fetch":
-            hit_uv, smooth_n, mat_id, tri_n = (
-                plus_zero_times(x, x2) for x, x2 in zip(
-                    (hit_uv, smooth_n, mat_id, tri_n),
-                    fetch_attributes(scene, hit_slot, hitpoint + 1e-7)))
-        merged_et = (settings.merge_envtex and settings.use_texture
-                     and settings.use_envmap
-                     and settings.env_importance_sampling
-                     and "envtex_quad" in scene)
-        if merged_et:
-            env, tex_rgb = env_tex_merged(scene, settings, d, pdf_prev,
-                                          cam_vec[15], miss, hit_uv)
-            if dup in ("envmiss", "texture"):
-                # hit_uv perturbed too: it feeds the gather's row index
-                e2, t2 = env_tex_merged(scene, settings, d, pdf_prev + 1e-7,
-                                        cam_vec[15], miss, hit_uv + 1e-7)
-                env = plus_zero_times(env, e2)
-                tex_rgb = plus_zero_times(tex_rgb, t2)
-        else:
-            tex_rgb = None
-            env = env_miss_weighted(scene, settings, d, pdf_prev,
-                                    cam_vec[15])
-            if dup == "envmiss":
-                env = plus_zero_times(env, env_miss_weighted(
-                    scene, settings, d, pdf_prev + 1e-7, cam_vec[15]))
-        contrib = torch.where(miss[:, None], m * env, 0.0)
-        surf = ~miss & ~sampled_medium if settings.has_media else ~miss
-        surf = _and(active, surf)
-
-        hit = (hit_uv, smooth_n, mat_id, tri_n, hitpoint)
-        (r, o, d, m, pdf_new, lb, mid, contrib, ended,
-         n_shadow) = shade_hits(
-            scene, settings, r, o, d, m, pdf_prev, lbn_a, mid, surf, hit,
-            tex_rgb, contrib, cam_vec[15], light, count_rays=with_stats,
-            dup_stage=dup)
-        if active is None:
-            bn = bn_prev + 1
-        else:
-            bn = torch.where(active, bn_prev + 1, bn_prev)
-        finished = _and(active, miss | ended | (bn >= lb)
-                        | (bn >= settings.bounce_max))
-        return (o, d, m, pdf_new, r, lb, bn, mid, contrib, finished,
-                hit_slot, n_shadow)
-
-    def integrate_frames(scene, cam_vec, frame0, lane0, accum, n_frames):
-        device = accum.device
-        N = accum.shape[0]
-        P = N if settings.pool_lanes <= 0 else min(settings.pool_lanes, N)
-        tot = N * int(n_frames)
-        if tot >= 2 ** 32:
-            raise ValueError("at most 2^32 samples per call (the sample id "
-                             "is a uint32 in the RNG seed)")
-        accum = accum.clone()
-        # dup_stage="scatter": each index_add_ is repeated into this scratch
-        # image, which is dropped
-        scratch = torch.zeros_like(accum) if dup == "scatter" else None
-
-        def add_to_image(idx, val):
-            accum.index_add_(0, idx, val)
-            if scratch is not None:
-                scratch.index_add_(0, idx, val * 1.0000001)
-        f32 = dict(dtype=torch.float32, device=device)
-        # the vector state: [P,3] rows, or [3,P] planes under "sort"
-        vshape = (3, P) if sort_mode else (P, 3)
-        orig = torch.zeros(vshape, **f32)
-        raydir = torch.zeros(vshape, **f32)
-        mask = torch.zeros(vshape, **f32)
-        ell = torch.zeros(vshape, **f32)
-        bsdf_pdf = torch.full((P,), -1.0, **f32)
-        rng = torch.zeros((P,), dtype=torch.int64, device=device)
-        pixel = torch.zeros((P,), dtype=torch.int64, device=device)
-        lbn = torch.zeros((P,), dtype=torch.int32, device=device)
-        bounce = torch.zeros((P,), dtype=torch.int32, device=device)
-        medium_id = torch.full((P,), -1, dtype=torch.int32, device=device)
-        live = torch.zeros((P,), dtype=torch.bool, device=device)
-        rays = torch.zeros((), dtype=torch.float64, device=device)
-        light = distant_light(settings, device)
-        nxt, alive, waves = 0, 0, 0
-
-        def rows(t, a):
-            """Rows a of a vector-state tensor as an [n,3] tensor."""
-            return t[:, a].t().contiguous() if sort_mode else t[a]
-
-        def set_rows(t, a, v):
-            if sort_mode:
-                t[:, a] = v.t()
-            else:
-                t[a] = v
-
-        while ((nxt < tot or alive > 0)
-               and not 0 < stop_after_waves <= waves):
-            # ---- respawn: dead lanes take the next samples of the queue,
-            # in order: the dead suffix [alive, P) under compact, the dead
-            # lanes in lane order under inplace ----
-            n_spawn = min(tot - nxt, P - alive)
-            if n_spawn > 0:
-                if inplace:
-                    s = torch.nonzero(~live).squeeze(1)[:n_spawn]
-                else:
-                    s = slice(alive, alive + n_spawn)
-                sid = nxt + torch.arange(n_spawn, dtype=torch.int64,
-                                         device=device)
-                pixel_new = sid % N
-                frame_new = int(frame0) + sid // N
-                pixel_glob = pixel_new + int(lane0)
-                rng_new = RaySampler.init(wang_hash(frame_new), pixel_glob)
-                pxi, pyi = lane_pixel_xy(pixel_glob, width, height)
-                px, py = pxi.to(torch.float32), pyi.to(torch.float32)
-                rng_new, o_new, d_new = generate_camera_rays(
-                    cam_vec, rng_new, px, py)
-                if dup == "respawn":
-                    r2, o2, d2 = generate_camera_rays(cam_vec, rng_new,
-                                                      px + 1e-6, py)
-                    o_new = plus_zero_times(
-                        o_new, o2 + d2 + r2[:, None].to(torch.float32))
-                set_rows(orig, s, o_new)
-                set_rows(raydir, s, d_new)
-                set_rows(mask, s, torch.ones_like(o_new))
-                set_rows(ell, s, torch.zeros_like(o_new))
-                bsdf_pdf[s] = -1.0
-                rng[s] = rng_new
-                pixel[s] = pixel_new
-                lbn[s] = settings.bounce_min
-                bounce[s] = 0
-                medium_id[s] = -1
-                live[s] = True
-                nxt += n_spawn
-            n_act = alive + n_spawn
-            if with_stats:
-                rays += n_act
-
-            # ---- one wavefront segment: over the live prefix (compact)
-            # or over the whole pool under the live mask (inplace) ----
-            a = slice(0, P) if inplace else slice(0, n_act)
-            (o, d, m, pdf_new, r, lb, bn, mid, contrib, finished, hit_slot,
-             n_shadow) = wave(scene, cam_vec, rows(orig, a), rows(raydir, a),
-                              rows(mask, a), bsdf_pdf[a], rng[a], lbn[a],
-                              bounce[a], medium_id[a],
-                              live if inplace else None, light)
-            if with_stats:
-                rays += n_shadow
-            if deferred:
-                ell_a = rows(ell, a) + contrib
-            else:
-                add_to_image(pixel[a], contrib)
-                ell_a = rows(ell, a)
-            n_fin = int(finished.sum())          # the wave's one host read
-            alive = n_act - n_fin
-            waves += 1
-
-            if inplace:
-                set_rows(orig, a, o)
-                set_rows(raydir, a, d)
-                set_rows(mask, a, m)
-                bsdf_pdf[a], rng[a], lbn[a], bounce[a], medium_id[a] = (
-                    pdf_new, r, lb, bn, mid)
-                live &= ~finished
-                continue
-
-            # ---- compact: survivors (hit slot major, octant minor) to the
-            # front, dead lanes to the tail ----
-            oct_ = ((d[:, 0] < 0).to(torch.int32)
-                    | ((d[:, 1] < 0).to(torch.int32) << 1)
-                    | ((d[:, 2] < 0).to(torch.int32) << 2))
-            key = torch.where(finished, 2 ** 30,
-                              (torch.clamp_min(hit_slot, 0) << 3) | oct_)
-            if sort_mode:
-                # one stable sort order moves every plane and column
-                src = torch.sort(key, stable=True)[1]
-                src2 = (torch.sort(key + 1, stable=True)[1]
-                        if dup == "permute" else None)
-
-                def move(v):
-                    if src2 is None:
-                        return v[..., src]
-                    return plus_zero_times(v[..., src], v[..., src2])
-                for t, v in ((orig, o), (raydir, d), (mask, m),
-                             (ell, ell_a)):
-                    t[:, a] = move(v.t())
-                bsdf_pdf[a] = move(pdf_new)
-                rng[a] = move(r)
-                pixel[a] = move(pixel[a])
-                lbn[a] = move(lb)
-                bounce[a] = move(bn)
-                medium_id[a] = move(mid)
-            else:
-                # one row gather moves the packed pool; int32 bits:
-                # orig 0:3 | dir 3:6 | mask 6:9 | bsdf_pdf 9 | L 10:13 |
-                # rng 13 | pixel 14 | lbn + bounce<<8 + (medium_id+1)<<16 15
-                src = torch.argsort(key, stable=True)
-                pmat = torch.cat([
-                    o.view(torch.int32), d.view(torch.int32),
-                    m.view(torch.int32),
-                    pdf_new[:, None].contiguous().view(torch.int32),
-                    ell_a.view(torch.int32),
-                    r.to(torch.int32)[:, None],
-                    pixel[a].to(torch.int32)[:, None],
-                    (lb | (bn << 8) | ((mid + 1) << 16))[:, None]],
-                    dim=1)
-                pmat = (plus_zero_times(pmat[src], pmat[src])
-                        if dup == "permute" else pmat[src])
-                orig[a] = pmat[:, 0:3].contiguous().view(torch.float32)
-                raydir[a] = pmat[:, 3:6].contiguous().view(torch.float32)
-                mask[a] = pmat[:, 6:9].contiguous().view(torch.float32)
-                bsdf_pdf[a] = pmat[:, 9].contiguous().view(torch.float32)
-                ell[a] = pmat[:, 10:13].contiguous().view(torch.float32)
-                rng[a] = pmat[:, 13].to(torch.int64) & MASK32
-                pixel[a] = pmat[:, 14].to(torch.int64)
-                lbn[a] = pmat[:, 15] & 0xFF
-                bounce[a] = (pmat[:, 15] >> 8) & 0xFF
-                medium_id[a] = (pmat[:, 15] >> 16) - 1
-            live[alive:n_act] = False
-            if deferred and n_fin:
-                # the paths that died this wave are now rows [alive, n_act)
-                dead = slice(alive, n_act)
-                add_to_image(pixel[dead], rows(ell, dead))
-
-        if stop_after_waves:
-            vec = {k: (t.t() if sort_mode else t) for k, t in
-                   (("orig", orig), ("dir", raydir), ("mask", mask),
-                    ("L", ell))}
-            vec["L"] = torch.where(live[:, None], vec["L"], 0.0)
-            return {**vec, "bsdf_pdf": bsdf_pdf, "rng": rng,
-                    "pixel": pixel, "lbn": lbn, "bounce": bounce,
-                    "medium_id": medium_id, "active": live.clone(),
-                    "waves": waves, "next": nxt, "alive": alive}
-        if with_stats:
-            return accum, waves, float(rays)
-        return accum, waves
-
-    return integrate_frames
+    host integers waves, next (samples spawned) and alive, read once after
+    the loop. L is 0 outside the active set, as in JAX; the other fields
+    of dead rows are stale."""
+    return RegenIntegrator(settings, width, height, with_stats=with_stats,
+                           stop_after_waves=stop_after_waves)

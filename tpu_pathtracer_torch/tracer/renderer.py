@@ -8,6 +8,7 @@ it into an [H,W,3] image.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 
@@ -100,6 +101,16 @@ def generate_camera_rays(cam_vec, rng, pixel_x, pixel_y):
     return rng, aperture_point, normalize(point_on_image - aperture_point)
 
 
+def camera_vector(camera: RenderCamera, device):
+    """The camera's [16] f32 vector on `device`; to a CUDA device through
+    pinned memory, without blocking the host."""
+    v = torch.from_numpy(np.ascontiguousarray(camera.as_array(),
+                                              dtype=np.float32))
+    if torch.device(device).type == "cuda":
+        return v.pin_memory().to(device, non_blocking=True)
+    return v.to(device)
+
+
 def lane_tables(width, height, block=32):
     """(lane_px, lane_py) int32 tables of the block swizzle (host numpy)."""
     bs = block
@@ -182,7 +193,15 @@ class Renderer:
     padding dropped. base_scene: the `scene` of another Renderer built on
     the same flat_bvh / materials / envmap / texture; its
     resolution-independent tensors are shared (the same objects, no copy)
-    and only the lane tables are built anew."""
+    and only the lane tables are built anew.
+
+    The Renderer owns its regen integrators, as the JAX Renderer jits its
+    frame function once: `regen_integrator` builds one per (settings,
+    with_stats, stop_after_waves) and regen.capture_key (device, lanes,
+    deterministic mode, scene tensors), each with its captured wave
+    (tracer/regen.py), and keeps the MAX_INTEGRATORS most recent."""
+
+    MAX_INTEGRATORS = 16
 
     def __init__(self, flat_bvh, materials, envmap=None, texture=None,
                  width=512, height=512, settings: RenderSettings = None,
@@ -238,6 +257,29 @@ class Renderer:
             scene[k] = torch.from_numpy(np.pad(v, (0, n_pad))).to(
                 self.device)
         self.scene = scene
+        self._integrators = collections.OrderedDict()
+
+    def regen_integrator(self, with_stats=False, stop_after_waves=0,
+                         scene=None, n_lanes=None):
+        """The regen integrate_frames of the current settings for calls on
+        `scene` (default: self.scene) of n_lanes lanes (default: a whole
+        lane chunk), built at its first use and reused after."""
+        from . import regen
+        scene = self.scene if scene is None else scene
+        if n_lanes is None:
+            n_lanes = min(self.width * self.height, self.lane_chunk)
+        key = (self.settings, bool(with_stats), int(stop_after_waves)) \
+            + regen.capture_key(n_lanes, scene["lane_px"].device, scene)
+        fn = self._integrators.get(key)
+        if fn is None:
+            fn = regen.make_regen_integrator(
+                self.settings, self.width, self.height,
+                with_stats=with_stats, stop_after_waves=stop_after_waves)
+            self._integrators[key] = fn
+            while len(self._integrators) > self.MAX_INTEGRATORS:
+                self._integrators.popitem(last=False)
+        self._integrators.move_to_end(key)
+        return fn
 
     def zeros_accum(self):
         return torch.zeros((self.width * self.height, 3), dtype=torch.float32,
@@ -271,11 +313,10 @@ class Renderer:
         traced rays); waves counts bounces for the bounce integrator, and
         the ray count is 0 without with_stats."""
         if self.settings.integrator == "regen":
-            from .regen import make_regen_integrator
-            fn = make_regen_integrator(self.settings, self.width,
-                                       self.height, with_stats=with_stats)
+            fn = self.regen_integrator(with_stats, scene=scene,
+                                       n_lanes=accum_chunk.shape[0])
             out = fn(scene, cam_vec, frame0, lane0, accum_chunk, n_frames)
-            return out if with_stats else (out[0], out[1], 0.0)
+            return out if with_stats else (out[0], 0, 0.0)
         from .wavefront import make_integrator
         integrate = make_integrator(self.settings)
         stats = {} if with_stats else None
@@ -293,7 +334,7 @@ class Renderer:
         frame_start + n_frames - 1) to the lane-ordered accum and return the
         new accum, chunk by chunk of lane_chunk lanes. with_stats=True
         returns (accum, waves, traced_rays): regen waves or bounces."""
-        cam_vec = torch.as_tensor(camera.as_array(), device=self.device)
+        cam_vec = camera_vector(camera, self.device)
         n = accum.shape[0]
         chunk = self.lane_chunk
         if n <= chunk:

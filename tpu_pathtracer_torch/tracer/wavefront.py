@@ -94,9 +94,10 @@ class RenderSettings:
 
 def trace_rays(scene, settings: RenderSettings, orig, raydir, tmin, tmax,
                anyhit=False, active=None, active_prefix=None):
-    """Traversal dispatch. active_prefix (an int) asserts that the active
-    set is the exact lane prefix [0, n); `active` must still be passed for
-    the plain path."""
+    """Traversal dispatch. active_prefix (an int, or a 0-d int32 tensor on
+    the rays' device that the traversal reads there) asserts that the
+    active set is the exact lane prefix [0, n); `active` must still be
+    passed for the plain path."""
     mode = settings.traversal
     if mode == "wavefront":
         return intersect_scene(

@@ -107,7 +107,7 @@ back to the CPU. Phases, each fatal on failure:
    replayed; phases 4-9 above already run this way): (10a) on TestObj and
    the organic sss and media scenes at 256x256, 2 spp, under torch's
    deterministic algorithms, the replayed frame equals the eager one
-   (regen.no_graphs()) bit for bit, with the same waves, rays and
+   (device_loop.no_graphs()) bit for bit, with the same waves, rays and
    launches; (10b) TestObj at 1024x1024, 2 spp: the replayed frame passes
    the gate statistics against the eager one, and a replayed render call
    runs under torch.cuda.set_sync_debug_mode("error"); (10c) at
@@ -119,13 +119,31 @@ back to the CPU. Phases, each fatal on failure:
    sees in one replayed 1-spp call at 1024x1024 number exactly the
    launches the counts give for it (a replay adds its capture's counts;
    the one wave past the end is counted and launched);
+11. the bounce integrator as one device program (tracer/wavefront.py's
+   frame_start, bounce_step and frame_end, each captured once as a CUDA
+   graph through tracer/device_loop.py and replayed; phases 8 and 9e
+   already run it so) and sharded frames with every shard in flight:
+   (11a) on TestObj and the organic sss and media scenes at 256x256, 2
+   spp, under torch's deterministic algorithms, the replayed bounce frame
+   equals the eager one (device_loop.no_graphs()) bit for bit, with the
+   same bounces run, bounces launched, rays and launches; (11b) TestObj
+   bounce at 1024x1024: the gate against regen, the steady frame (the
+   marginal of frames (1, 3)) and a 1-spp call replayed and eager in
+   turns, the device's busy ms and idle share of phase 9e's profiled
+   calls, the bounces launched past a frame's end, the capture time and
+   max_memory_allocated of a first call, and a replayed call under
+   torch.cuda.set_sync_debug_mode("error"); (11c) the traverse_kernel
+   events of one profiled replayed 1-spp bounce call equal its launch
+   counts; (11d) 2 shards on the mesh [cuda:0, cuda:0] equal the whole
+   1-spp render bit for bit for regen and for bounce, and a sharded call
+   runs under sync debug "error";
 6. print the kernels line (rows 1-3 also carry their launches on the
-   bounce path, "launches_bounce", rows 1-2 on the viewer path,
+   replayed bounce path, "launches_bounce", rows 1-2 on the viewer path,
    "launches_viewer"), the card line, and the result line (last).
 
-Phases 4-9 replay captured regen waves (the default on a CUDA device):
-each renderer's first call of a key captures, and the timed calls come
-after a warm-up call of the same key.
+Phases 4-11 replay captured steps (the default on a CUDA device): each
+renderer's first call of a key captures, and the timed calls come after a
+warm-up call of the same key.
 
 Bounds. A traversal kernel's bound is the larger of its bytes (active
 rays, the table once, mask and outputs) over 3.35 TB/s and its operations over the
@@ -576,11 +594,13 @@ def measure_ab(root):
     sss and media steady frames and 1-spp calls at 1024x1024 (marginal_ms),
     the viewer's ladder at a 1920x1080 window, the idle share of profiled
     TestObj calls of 1 and 3 frames (busy over each window of one trace)
-    beside the marginal readings, the capture
+    beside the marginal readings, the same for the TestObj bounce frames
+    (integrator="bounce", in the port since its bounce slice), the capture
     time where the checkout captures, max_memory_allocated, and the bare
     traversal launch on 1M coherent camera rays (closest hit over the whole
     int prefix; any hit under a 50% mask) with ptxas's registers. Returns
     the record."""
+    import dataclasses
     import statistics
     import numpy as np
     sys.path.insert(0, os.path.abspath(root))
@@ -629,6 +649,15 @@ def measure_ab(root):
                                       "idle_share")} for sp in (lo, hi)],
         "marginal": {k: marg[k] for k in ("busy_ms", "window_ms", "frame_ms",
                                           "idle_share", "frame_idle_share")}}
+    rb = Renderer(parts[0], parts[1], envmap=parts[2], texture=parts[3],
+                  width=W, height=W, base_scene=r.scene, device=dev)
+    rb.settings = dataclasses.replace(rb.settings, integrator="bounce")
+    rec["testobj_bounce"] = frames(rb)
+    lo, hi, _ = profile_frame.profile(rb, rc, (1, 3))["spans"]
+    rec["testobj_bounce"]["profile"] = {"calls": [
+        {k: sp[k] for k in ("frames", "window_ms", "busy_ms", "idle_share")}
+        for sp in (lo, hi)]}
+    del rb
     o, d = camera_rays(W, dev)
     half = torch.from_numpy(
         np.random.default_rng(5).random(o.shape[0]) < 0.5).to(dev)
@@ -737,14 +766,17 @@ def phase8(np, torch, ops, dev, fb, mats, envmap, texture, sss_parts, rc,
 
     def frame(rr):
         return rr.render_frames(rr.zeros_accum(), rc, 1, 1)
+    frame(r)                                  # warm-ups: the captures
     whole, t_whole = event_ms(torch, lambda: frame(r))
     chunked = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
                        height=H, settings=bounce_s, lane_chunk=W * H // 4,
                        base_scene=r.scene, device=dev)
     assert chunked.scene["packed"] is r.scene["packed"]
+    frame(chunked)
     got, t_chunk = event_ms(torch, lambda: frame(chunked))
     assert torch.equal(got, whole), "4 lane chunks != the whole bounce frame"
     sr = ShardedRenderer(r, mesh=make_mesh([dev, dev]))
+    frame(sr)
     got, t_shard = event_ms(torch, lambda: frame(sr))
     assert torch.equal(got[:W * H], whole), "2 shards != 1 (bounce)"
     r.settings = regen_s
@@ -1048,7 +1080,7 @@ def phase10(np, torch, ops, dev, scenes, W):
     -> scene parts. Returns the record."""
     import tempfile
     from tpu_pathtracer_torch.scene import demo
-    from tpu_pathtracer_torch.tracer import regen
+    from tpu_pathtracer_torch.tracer import device_loop
     from tpu_pathtracer_torch.tracer.renderer import Renderer
     rec = {}
 
@@ -1078,7 +1110,7 @@ def phase10(np, torch, ops, dev, scenes, W):
         r, rc = renderer(tag, EXACT_SIZE)
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            with regen.no_graphs():
+            with device_loop.no_graphs():
                 (want, w_waves, w_rays), w_counts = counted(r, rc, 2)
             t0 = time.perf_counter()
             counted(r, rc, 2)                       # captures
@@ -1093,7 +1125,7 @@ def phase10(np, torch, ops, dev, scenes, W):
         assert (waves, rays) == (w_waves, w_rays), (tag, waves, w_waves)
         assert counts == w_counts, (tag, counts, w_counts)
         assert capture_s and \
-            sum(by_width.values()) == waves + regen.LAG - 1, \
+            sum(by_width.values()) == waves + device_loop.LAG - 1, \
             (tag, by_width, capture_s)
         rec["bit_for_bit"][tag] = {
             "waves": waves, "rays": rays, "launches": counts,
@@ -1109,7 +1141,7 @@ def phase10(np, torch, ops, dev, scenes, W):
 
     # ---- 10b. the gate at full width, no synchronising call ----
     r, rc = renderer("testobj", W)
-    with regen.no_graphs():
+    with device_loop.no_graphs():
         (want, _, _), w_counts = counted(r, rc, 2)
     counted(r, rc, 2)
     (got, _, _), counts = counted(r, rc, 2)
@@ -1164,7 +1196,7 @@ def phase10(np, torch, ops, dev, scenes, W):
     turns = {"graph": [], "eager": []}
     for mode in ("graph", "eager", "eager", "graph", "graph", "eager"):
         if mode == "eager":
-            with regen.no_graphs():
+            with device_loop.no_graphs():
                 turns[mode].append(marginal(r, rc))
         else:
             turns[mode].append(marginal(r, rc))
@@ -1213,7 +1245,7 @@ def phase10(np, torch, ops, dev, scenes, W):
         base = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         if mode == "eager":
-            with regen.no_graphs():
+            with device_loop.no_graphs():
                 r.render_frames(r.zeros_accum(), rc, 1, 1)
         else:
             r.render_frames(r.zeros_accum(), rc, 1, 1)
@@ -1232,6 +1264,213 @@ def phase10(np, torch, ops, dev, scenes, W):
            ["%.2f" % c for c in mem["graph"]["capture_s"]],
            mem["graph"]["peak_gb"]))
     torch.cuda.empty_cache()
+    return rec
+
+
+def phase11(np, torch, ops, dev, scenes, W, bounce_profile):
+    """Phase 11: the bounce integrator as one device program (frame start,
+    bounces, frame end, each a captured graph) and sharded frames with
+    every shard in flight. scenes: {"testobj", "sss", "media"} -> scene
+    parts; bounce_profile: phase 9e's profile of the replayed TestObj
+    bounce frames. Returns the record."""
+    import dataclasses
+    import tempfile
+    from tpu_pathtracer_torch.scene import demo
+    from tpu_pathtracer_torch.tracer import device_loop
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.parallel import ShardedRenderer, make_mesh
+    rec = {}
+
+    def renderer(tag, size, integrator="bounce"):
+        fb, mats, envmap, texture = scenes[tag]
+        r = Renderer(fb, mats, envmap=envmap, texture=texture, width=size,
+                     height=size, device=dev)
+        r.settings = dataclasses.replace(r.settings, integrator=integrator)
+        return r, demo.default_camera(size, size).build_render_camera()
+
+    def counted(r, rc, spp, stats=True):
+        for table in (ops.LAUNCHES, ops.FORM_LAUNCHES):
+            for k in table:
+                table[k] = 0
+        out = r.render_frames(r.zeros_accum(), rc, 1, spp, with_stats=stats)
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in {**ops.LAUNCHES,
+                                       **ops.FORM_LAUNCHES}.items() if v}
+
+    # ---- 11a. replayed = eager bit for bit, deterministic, 256x256 ----
+    rec["bit_for_bit"] = {}
+    for tag in ("testobj", "sss", "media"):
+        r, rc = renderer(tag, EXACT_SIZE)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with device_loop.no_graphs():
+                (want, w_b, w_rays), w_counts = counted(r, rc, 2)
+                w_launched = r.bounce_integrator(True).last_launched
+            t0 = time.perf_counter()
+            counted(r, rc, 2)                       # captures
+            first_s = time.perf_counter() - t0
+            (got, b, rays), counts = counted(r, rc, 2)
+            fn = r.bounce_integrator(True)
+            launched, capture_s = fn.last_launched, fn.graph.capture_s
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert torch.equal(got, want), (tag, "replayed bounce != eager")
+        assert (b, rays, launched) == (w_b, w_rays, w_launched), \
+            (tag, b, w_b, launched, w_launched)
+        assert counts == w_counts, (tag, counts, w_counts)
+        assert counts["traverse_closest"] >= launched > 0
+        rec["bit_for_bit"][tag] = {
+            "bounces": b, "launched": launched, "rays": rays,
+            "launches": counts, "first_call_s": first_s,
+            "capture_s": capture_s}
+        log("  11a %-7s %dx%d x 2 spp bounce: replayed = eager bit for bit "
+            "(deterministic), %d bounces run, %d launched, launches %s, "
+            "first call %.2f s (captures %.2f s)"
+            % (tag, EXACT_SIZE, EXACT_SIZE, b, launched, counts, first_s,
+               capture_s))
+        del r, want, got
+    torch.cuda.empty_cache()
+
+    # ---- 11b. TestObj bounce at full width ----
+    r, rc = renderer("testobj", W)
+    g, grc = renderer("testobj", W, "regen")
+    counted(r, rc, 2)                               # captures
+    (b_img, b, rays), b_counts = counted(r, rc, 2)
+    launched = r.bounce_integrator(True).last_launched
+    counted(g, grc, 2)
+    (g_img, _, _), _ = counted(g, grc, 2)
+    b_gate = gate(np, b_img.cpu().numpy() / 2, g_img.cpu().numpy() / 2,
+                  "replayed bounce vs regen %d" % W)
+    del g, g_img, b_img
+    marginal_ms(torch, r, rc)                           # the no-stats key
+    with device_loop.no_graphs():
+        marginal_ms(torch, r, rc)
+    turns = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph", "graph", "eager"):
+        if mode == "eager":
+            with device_loop.no_graphs():
+                turns[mode].append(marginal_ms(torch, r, rc))
+        else:
+            turns[mode].append(marginal_ms(torch, r, rc))
+    steady = {m: [a for a, _ in v] for m, v in turns.items()}
+    one = {m: [c for _, c in v] for m, v in turns.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        acc = r.render_frames(r.zeros_accum(), rc, 1, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(acc).all().item() and acc.mean().item() > 0
+    lo, hi, _ = bounce_profile["spans"]
+    rec["testobj_1024"] = {
+        "gate_vs_regen": b_gate, "bounces_2spp": b, "launched_2spp": launched,
+        "overrun_per_frame": (launched - b) / 2, "rays_2spp": rays,
+        "launches_2spp": b_counts, "steady_ms": steady,
+        "render_1spp_ms": one,
+        "steady_median_ms": {m: float(np.median(v))
+                             for m, v in steady.items()},
+        "render_1spp_median_ms": {m: float(np.median(v))
+                                  for m, v in one.items()},
+        "profiled_calls": {"%d_frames" % sp["frames"]: {
+            k: sp[k] for k in ("window_ms", "busy_ms", "idle_share")}
+            for sp in (lo, hi)},
+        "sync_debug_error_passed": True}
+    log("  11b TestObj bounce %dx%d: vs regen %s; %d bounces run, %d "
+        "launched in 2 spp (over-run %.1f a frame); steady frame (marginal "
+        "of frames (1, 3)) replayed %s, eager %s ms; 1-spp call replayed "
+        "%s, eager %s ms; profiled calls (9e) busy %.1f / %.1f ms, idle "
+        "%.1f%% / %.1f%%; a replayed call ran under "
+        "set_sync_debug_mode('error')"
+        % (W, W, b_gate, b, launched, (launched - b) / 2,
+           ["%.1f" % x for x in steady["graph"]],
+           ["%.1f" % x for x in steady["eager"]],
+           ["%.1f" % x for x in one["graph"]],
+           ["%.1f" % x for x in one["eager"]], lo["busy_ms"],
+           hi["busy_ms"], 100 * lo["idle_share"], 100 * hi["idle_share"]))
+    del acc
+
+    # ---- 11c. the launch counts against what the device ran ----
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_pathtracer_torch.utils.profiling import load_events
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, p_counts = counted(r, rc, 1)
+    p_launched = r.bounce_integrator(True).last_launched
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "bounce.json")
+        prof.export_chrome_trace(path)
+        del prof
+        n_events = sum(1 for e in load_events(path)
+                       if e.get("cat") == "kernel"
+                       and "traverse_kernel" in e.get("name", ""))
+    n_counted = sum(v for k, v in p_counts.items() if k in ops.LAUNCHES)
+    assert n_events == n_counted > 0, (n_events, p_counts)
+    rec["profiled_launches"] = {"traverse_kernel_events": n_events,
+                                "counted": p_counts,
+                                "bounces_launched": p_launched}
+    log("  11c a profiled replayed 1-spp bounce call: %d traverse_kernel "
+        "events on the device = %d launches counted %s (%d bounces "
+        "launched)" % (n_events, n_counted, p_counts, p_launched))
+    del r
+    torch.cuda.empty_cache()
+
+    # ---- 11b. capture time and peak memory of a 1024x1024 frame ----
+    mem = {}
+    for mode in ("eager", "graph"):
+        r, rc = renderer("testobj", W)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        if mode == "eager":
+            with device_loop.no_graphs():
+                r.render_frames(r.zeros_accum(), rc, 1, 1)
+        else:
+            r.render_frames(r.zeros_accum(), rc, 1, 1)
+        torch.cuda.synchronize()
+        graph = r.bounce_integrator().graph
+        mem[mode] = {"first_call_s": time.perf_counter() - t0,
+                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                     "peak_over_start_gb": (torch.cuda.max_memory_allocated(
+                         dev) - base) / 1e9,
+                     "capture_s": graph.capture_s if graph else None}
+        del r
+    rec["memory"] = mem
+    log("  11b TestObj bounce %dx%d first call: eager %.2f s, peak %.2f GB; "
+        "replayed %.2f s (captures %.2f s: start, bounce, end), peak %.2f GB"
+        % (W, W, mem["eager"]["first_call_s"], mem["eager"]["peak_gb"],
+           mem["graph"]["first_call_s"], mem["graph"]["capture_s"],
+           mem["graph"]["peak_gb"]))
+    torch.cuda.empty_cache()
+
+    # ---- 11d. 2 shards on the one card = the whole render, no sync ----
+    rec["shards"] = {}
+    for integrator in ("regen", "bounce"):
+        r, rc = renderer("testobj", W, integrator)
+        whole = r.render_frames(r.zeros_accum(), rc, 1, 1)
+        sr = ShardedRenderer(r, mesh=make_mesh([dev, dev]))
+        sr.render_frames(sr.zeros_accum(), rc, 1, 1)    # warm-up
+        zero = sr.zeros_accum()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = sr.render_frames(zero, rc, 1, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        assert torch.equal(got[:W * W], whole), \
+            "2 shards != the whole %s render" % integrator
+        rec["shards"][integrator] = {"ms": dt, "bit_for_bit": True,
+                                     "sync_debug_error_passed": True}
+        log("  11d %s: 2 shards on the one card = the whole 1-spp frame "
+            "bit for bit, %.1f ms, under set_sync_debug_mode('error')"
+            % (integrator, dt))
+        del r, sr, whole, got
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -1785,6 +2024,15 @@ def main():
         "marginal_of_unprofiled_frame": marg["frame_idle_share"]}
     report["phase10"]["s"] = time.time() - t0
 
+    # ---- 11. the bounce frame as one device program; shards in flight ----
+    t0 = time.time()
+    report["phase11"] = phase11(np, torch, ops, dev, {
+        "testobj": (fb, mats, envmap, texture),
+        "sss": big_scenes["organic_sss"],
+        "media": big_scenes["organic_media"]}, W,
+        report["phase9"]["profiles"]["testobj_bounce"])
+    report["phase11"]["s"] = time.time() - t0
+
     assert "jax" not in sys.modules, "the port imported jax"
     assert not [m for m in sys.modules if m == "tpu_pathtracer"
                 or m.startswith("tpu_pathtracer.")], \
@@ -1853,7 +2101,7 @@ def main():
             "bound_ms": row["count_bound_ms" if counted else "bound_ms"],
             "bound_by": row["count_bound_by" if counted else "bound_by"],
             "library_ms": None})
-    # rows 1-3 on the bounce path (phase 8a / 8b), counted there
+    # rows 1-3 on the replayed bounce path (phase 8a / 8b), counted there
     p8 = report["phase8"]
     bounce_runs = {
         "traverse_closest": p8["testobj"]["bounce"]["launches"][

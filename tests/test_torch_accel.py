@@ -6,7 +6,12 @@ with exact equality. The Python SBVH builder is held on the small random
 mesh only: on the 4.4k-triangle TestObj mesh it takes ~30 s per package.
 """
 import functools
+import hashlib
 import os
+import shutil
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -20,9 +25,11 @@ from tpu_pathtracer.scene.mesh import TriangleMesh as JMesh
 from tpu_pathtracer_torch.accel import cache as tcache
 from tpu_pathtracer_torch.accel import flatten as tflatten
 from tpu_pathtracer_torch.accel import native_build as tnative
+from tpu_pathtracer_torch.scene import demo as tdemo
 from tpu_pathtracer_torch.scene import procedural as tproc
 from tpu_pathtracer_torch.scene.mesh import TriangleMesh as TMesh
 from tpu_pathtracer_torch.tracer import envsample as tenv
+from test_torch_scene import jax_native_lib
 
 torch.set_num_threads(2)
 # The first MKL-backed call (torch.sqrt) on a fresh CPU pool thread can
@@ -77,7 +84,8 @@ def test_cache_key_matches_jax(name):
 @pytest.mark.parametrize("name", ["testobj", "random"])
 def test_native_build_matches_jax(name):
     jm, tm = _meshes(name)
-    assert tnative.get_lib() is not None, "g++ build of the native SBVH"
+    assert tnative.get_lib() is not None, tnative.last_error()
+    jax_native_lib()
     _same_flat(tflatten.flatten_mesh_bvh(tm),
                jflatten.flatten_mesh_bvh(jm))
 
@@ -108,6 +116,7 @@ def test_cache_files_interchange(tmp_path):
     """A cache file written by either package loads in the other, under
     the same name, with the same arrays."""
     jm, tm = _meshes("random")
+    jax_native_lib()
     a = tcache.load_or_build(tm, cache_dir=str(tmp_path / "t"))
     b = jcache.load_or_build(jm, cache_dir=str(tmp_path / "j"))
     assert sorted(os.listdir(tmp_path / "t")) == \
@@ -121,6 +130,7 @@ def test_alias_tables_match_jax(python_loop, monkeypatch):
     g = np.random.default_rng(9)
     w = g.gamma(0.5, size=5000)
     p = w / w.mean()
+    jax_native_lib()
     jp, ja = jnative.alias_build_native(p)
     if python_loop:
         monkeypatch.setattr(tenv, "alias_build_native", lambda p: None)
@@ -129,3 +139,43 @@ def test_alias_tables_match_jax(python_loop, monkeypatch):
         tp, ta = tnative.alias_build_native(p)
     np.testing.assert_array_equal(np.asarray(tp, np.float32), jp)
     np.testing.assert_array_equal(np.asarray(ta, np.int32), ja)
+
+
+_RACE = """
+import hashlib, sys, time
+start = float(sys.argv[1])
+from tpu_pathtracer_torch.accel import native_build
+from tpu_pathtracer_torch.scene import demo
+while time.time() < start:
+    pass
+lib = native_build.get_lib()
+fb = demo.testobj_scene(cache_dir=None)[0]
+print(lib is not None, native_build.last_error(),
+      hashlib.sha256(fb.prims.tobytes() + fb.meta.tobytes()).hexdigest())
+"""
+
+
+def test_processes_starting_together_all_load_the_native_lib(tmp_path):
+    """Several processes start at one instant on a fresh copy of the port
+    (no built library): each loads the library (one compiles under the
+    file lock, the others wait for it and load the renamed file) and
+    builds the TestObj stream this process builds."""
+    src = os.path.dirname(os.path.dirname(os.path.abspath(tnative.__file__)))
+    dst = tmp_path / "tpu_pathtracer_torch"
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
+        "_build", "__pycache__"))
+    assert not (dst / "accel" / "native" / "_build").exists()
+    fb = tdemo.testobj_scene(cache_dir=None)[0]
+    want = hashlib.sha256(fb.prims.tobytes() + fb.meta.tobytes()).hexdigest()
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    start = time.time() + 8.0
+    procs = [subprocess.Popen([sys.executable, "-c", _RACE, repr(start)],
+                              cwd=str(tmp_path), env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+        assert out.split() == ["True", "None", want], (out, err[-2000:])
+    built = sorted(os.listdir(dst / "accel" / "native" / "_build"))
+    assert built == ["libsbvh.lock", "libsbvh.so"], built

@@ -1,7 +1,8 @@
 """The CUDA kernels (traversal, step-counting traversal, row gather and
 scatter) against their plain PyTorch versions, on the card, and the render
 paths that launch them (media, BSSRDF, bounce, chunks and shards, the regen
-orders, the dup_stage hook, the device tonemap and the viewer's session).
+orders, the dup_stage hook, the device tonemap and the viewer's session,
+the replayed regen and bounce frames against the eager ones).
 
 These tests need an NVIDIA GPU and nvcc; they skip elsewhere. The file
 imports no jax, so it also runs where jax is not installed:
@@ -731,10 +732,11 @@ def _graph_case(case, device):
                                   "bssrdf", "distant_light", "dup_shade",
                                   "chunks4"])
 def test_graph_frame_equals_no_graphs_bit_for_bit(device, case):
-    """The replayed regen frame equals the eager one (regen.no_graphs())
-    bit for bit under torch's deterministic algorithms, with the same
-    waves and rays, and launches the same kernels as often."""
-    from tpu_pathtracer_torch.tracer import regen
+    """The replayed regen frame equals the eager one
+    (device_loop.no_graphs()) bit for bit under torch's deterministic
+    algorithms, with the same waves and rays, and launches the same
+    kernels as often."""
+    from tpu_pathtracer_torch.tracer import device_loop
     r, rc = _graph_case(case, device)
 
     def render():
@@ -746,7 +748,7 @@ def test_graph_frame_equals_no_graphs_bit_for_bit(device, case):
         return out, {**ops.LAUNCHES, **ops.FORM_LAUNCHES}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        with regen.no_graphs():
+        with device_loop.no_graphs():
             (want, w_waves, w_rays), w_counts = render()
         render()                                     # captures
         (got, waves, rays), counts = render()
@@ -779,7 +781,7 @@ def test_second_call_reuses_the_graph(device):
     """One capture serves every call of one key: frames, lane offsets and
     accumulations are device inputs; the frozen pool of the probes'
     stop_after_waves replays too and equals the eager one."""
-    from tpu_pathtracer_torch.tracer import regen
+    from tpu_pathtracer_torch.tracer import device_loop
     from tpu_pathtracer_torch.tools.probe_steps import freeze_pool
     from tpu_pathtracer_torch.tracer.renderer import camera_vector
     r, rc = _graph_case("default", device)
@@ -791,7 +793,7 @@ def test_second_call_reuses_the_graph(device):
     vec = camera_vector(rc, device)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        with regen.no_graphs():
+        with device_loop.no_graphs():
             want = freeze_pool(r, vec, 3, 2)
         got = freeze_pool(r, vec, 3, 2)
     finally:
@@ -799,3 +801,79 @@ def test_second_call_reuses_the_graph(device):
     assert got["waves"] == want["waves"] == 3
     for k in ("orig", "dir", "mask", "L", "rng", "pixel", "active"):
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "media", "bssrdf",
+                                  "distant_light", "chunks4"])
+def test_bounce_graph_equals_no_graphs_bit_for_bit(device, case):
+    """The replayed bounce frames (frame start, bounces, frame end, each a
+    captured graph) equal the eager ones bit for bit under torch's
+    deterministic algorithms, with the same bounces, rays, bounces
+    launched and kernel launches (chip_smoke phase 11a)."""
+    import dataclasses
+    from tpu_pathtracer_torch.tracer import device_loop
+    r, rc = _graph_case(case, device)
+    r.settings = dataclasses.replace(r.settings, integrator="bounce")
+
+    def render():
+        for table in (ops.LAUNCHES, ops.FORM_LAUNCHES):
+            for k in table:
+                table[k] = 0
+        out = r.render_frames(r.zeros_accum(), rc, 1, 2, with_stats=True)
+        torch.cuda.synchronize()
+        return (out, r.bounce_integrator(True).last_launched,
+                {**ops.LAUNCHES, **ops.FORM_LAUNCHES})
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with device_loop.no_graphs():
+            (want, w_b, w_rays), w_launched, w_counts = render()
+        render()                                     # captures
+        (got, b, rays), launched, counts = render()
+        captured = r.bounce_integrator(True).graph
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(got, want), case
+    assert (b, rays, launched) == (w_b, w_rays, w_launched)
+    assert counts == w_counts and counts["traverse_closest"] >= launched > 0
+    assert captured is not None and sorted(captured.graphs) == [
+        "bounce", "end", "start"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["regen", "bounce"])
+def test_shards_on_one_card_equal_the_whole_render(device, integrator):
+    """Two shards on the one card (they share its captured steps and run
+    one after another) equal the whole 1-spp render bit for bit, and a
+    sharded call makes no synchronising call (chip_smoke phase 11d)."""
+    import dataclasses
+    from tpu_pathtracer_torch.parallel import ShardedRenderer, make_mesh
+    r, rc = _graph_case("default", device)
+    r.settings = dataclasses.replace(r.settings, integrator=integrator)
+    whole = r.render_frames(r.zeros_accum(), rc, 1, 1)
+    sr = ShardedRenderer(r, mesh=make_mesh([device, device]))
+    sr.render_frames(sr.zeros_accum(), rc, 1, 1)        # captures
+    zero = sr.zeros_accum()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sr.render_frames(zero, rc, 1, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[:whole.shape[0]], whole), integrator
+
+
+@pytest.mark.cuda
+def test_bounce_replays_make_no_synchronising_call(device):
+    """A replayed bounce call runs under set_sync_debug_mode("error")."""
+    import dataclasses
+    r, rc = _graph_case("default", device)
+    r.settings = dataclasses.replace(r.settings, integrator="bounce")
+    r.render_frames(r.zeros_accum(), rc, 1, 2)           # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        acc = r.render_frames(r.zeros_accum(), rc, 1, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(acc).all() and float(acc.mean()) > 0

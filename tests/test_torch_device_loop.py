@@ -30,7 +30,7 @@ from tpu_pathtracer_torch.accel import flatten_mesh_bvh
 from tpu_pathtracer_torch.ops import traverse_packet as tops
 from tpu_pathtracer_torch.scene import demo as tdemo, procedural
 from tpu_pathtracer_torch.scene.mesh import TriangleMesh
-from tpu_pathtracer_torch.tracer import regen, traverse as ttrav
+from tpu_pathtracer_torch.tracer import device_loop, regen, traverse as ttrav
 from tpu_pathtracer_torch.tracer.renderer import Renderer, camera_vector
 
 torch.set_num_threads(2)
@@ -191,7 +191,7 @@ def test_wave_makes_no_host_read(no_host_reads, variant, kw):
     acc, waves, rays = r.render_frames(r.zeros_accum(), rc, 1, 1,
                                        with_stats=True)
     assert waves > 0 and rays > 0
-    assert no_host_reads[0] == waves + regen.LAG - 1
+    assert no_host_reads[0] == waves + device_loop.LAG - 1
     assert torch.isfinite(acc).all() and float(acc.mean()) > 0
     # the guard catches a read
     with pytest.raises(HostRead), _guarded(True):
@@ -292,9 +292,9 @@ class FakeGraph:
         self.replays = 0
 
     def replay(self):
-        saved = regen._launch_counts()
+        saved = device_loop.launch_counts()
         self.step()
-        regen._set_launch_counts(saved)
+        device_loop.set_launch_counts(saved)
         self.replays += 1
 
 
@@ -302,10 +302,10 @@ def test_replay_adds_the_captured_launches(monkeypatch):
     captures = []
 
     def fake_capture(step, device):
-        before = regen._launch_counts()
+        before = device_loop.launch_counts()
         step()                  # a capture-time wave is a no-op wave
-        after = regen._launch_counts()
-        regen._set_launch_counts(before)
+        after = device_loop.launch_counts()
+        device_loop.set_launch_counts(before)
         g = FakeGraph(step)
         captures.append(g)
         return g, {k: after[k] - before[k] for k in after
@@ -330,8 +330,8 @@ def test_replay_adds_the_captured_launches(monkeypatch):
         return acc, {**tops.LAUNCHES, **tops.FORM_LAUNCHES}
     r, rc = _renderer(12, "subsurface")
     eager, eager_counts = render(r, rc)
-    monkeypatch.setattr(regen, "graphs_enabled", lambda device: True)
-    monkeypatch.setattr(regen, "_capture", fake_capture)
+    monkeypatch.setattr(device_loop, "graphs_enabled", lambda device: True)
+    monkeypatch.setattr(device_loop, "capture", fake_capture)
     for i in range(2):
         acc, counts = render(r, rc)
         assert torch.equal(acc, eager)
@@ -396,15 +396,15 @@ def test_a_call_never_ends_on_a_stale_status(monkeypatch):
     eager = r.render_frames(r.zeros_accum(), rc, 1, 2, with_stats=True)
     fn = r.regen_integrator(True)
     eager_waves = dict(fn.last_waves)
-    monkeypatch.setattr(regen, "graphs_enabled", lambda device: True)
-    monkeypatch.setattr(regen, "_capture",
+    monkeypatch.setattr(device_loop, "graphs_enabled", lambda device: True)
+    monkeypatch.setattr(device_loop, "capture",
                         lambda step, device: (FakeGraph(step), {}))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: ("stream", str(device)))
     r.render_frames(r.zeros_accum(), rc, 1, 2, with_stats=True)  # captures
-    flags = [LateFlag() for _ in fn.graph.flags]
+    flags = [LateFlag() for _ in fn.graph.ring.flags]
     events = [StubEvent(f, ("stream", "cpu")) for f in flags]
-    fn.graph.flags, fn.graph.events = flags, events
+    fn.graph.ring.flags, fn.graph.ring.events = flags, events
     for _ in range(2):
         got = r.render_frames(r.zeros_accum(), rc, 1, 2, with_stats=True)
         assert torch.equal(got[0], eager[0]) and got[1:] == eager[1:]

@@ -39,7 +39,8 @@ def test_port_has_the_slice_modules():
               "scene.hdr", "scene.objloader", "utils.timing",
               "tools.render", "utils.profiling", "tools.interactive",
               "tools.profile_frame", "tools.probe_viewer",
-              "tools.showcase_1080p", "tools.gallery", "tools.sweep_frame"):
+              "tools.showcase_1080p", "tools.gallery", "tools.sweep_frame",
+              "tracer.device_loop"):
         assert "tpu_pathtracer_torch." + m in mods, m
 
 

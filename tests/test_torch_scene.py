@@ -1,12 +1,28 @@
-"""Port scene construction against the JAX package: equal bits."""
+"""Port scene construction against the JAX package: equal bits.
+
+JAX's native SBVH loader (tpu_pathtracer/accel/native_build.py) compiles
+in place and remembers a failed load for the whole process. When several
+test processes start on a checkout without the built library, one of
+them can load a file another is still writing ("file too short"), and
+its JAX scenes then come from the Python builder, whose TestObj tree is
+not the native one. `jax_native_lib` (used here and in
+test_torch_accel.py) makes sure the JAX library is loaded before a JAX
+scene is built; the port's own loader holds a file lock instead.
+"""
+import ctypes
 import dataclasses
 import functools
+import os
+import shutil
+import threading
+import time
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from tpu_pathtracer.accel import native_build as jnative
 from tpu_pathtracer.scene import procedural as jproc
 from tpu_pathtracer.scene import demo as jdemo
 from tpu_pathtracer.tracer import renderer as jrenderer
@@ -28,6 +44,43 @@ torch.set_num_threads(2)
 # one call spanning both threads settles it before any test compares.
 torch.sqrt(torch.ones(1 << 16))
 CACHE = None   # build in-process: no cache file shared between workers
+
+
+def jax_native_lib(settle_s=1.0, timeout_s=120.0):
+    """JAX's native SBVH library, loaded. When get_lib() failed (a load
+    during another process's compile), wait until the library file has
+    stopped changing, check that it loads, and only then clear the
+    loader's remembered failure and load again. A library that never
+    settles or does not load fails the test, naming the cause."""
+    lib = jnative.get_lib()
+    if lib is not None:
+        return lib
+    path, last = jnative._LIB, None
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            st = os.stat(path)
+            now = (st.st_ino, st.st_size, st.st_mtime_ns)
+        except FileNotFoundError:
+            now = None
+        if now is not None and now == last:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                "JAX's native SBVH library %s %s after %.0f s (g++: %s)"
+                % (path, "never appeared" if now is None
+                   else "kept changing", timeout_s, shutil.which("g++")))
+        last = now
+        time.sleep(settle_s)
+    try:
+        ctypes.CDLL(path)
+    except OSError as e:
+        raise AssertionError("JAX's native SBVH library does not load: %s"
+                             % e) from e
+    jnative._failed = False
+    lib = jnative.get_lib()
+    assert lib is not None, "JAX's native loader refused %s" % path
+    return lib
 
 
 def _bits(a):
@@ -57,6 +110,7 @@ def test_procedural_assets_identical():
 @pytest.mark.parametrize("variant", ["default", "lambertian", "gold",
                                      "subsurface", "media"])
 def test_testobj_variants_identical(variant):
+    jax_native_lib()
     jfb, jmats, jenvmap, jtex = jdemo.testobj_scene(cache_dir=CACHE,
                                                     variant=variant)
     tfb, tmats, tenvmap, ttex = _scene(variant)
@@ -197,3 +251,34 @@ def test_default_settings_for_a_stream_over_the_smem_budget():
     assert dataclasses.asdict(tr.settings) == dataclasses.asdict(jr.settings)
     assert (tr.settings.packet_tile_sub,
             tr.settings.packet_interleave) == (16, 4)
+
+
+def test_jax_native_guard_clears_a_failure_only_after_a_compile(
+        tmp_path, monkeypatch):
+    """A remembered failure stays while the library on disk does not load,
+    and is cleared once another process's compile has put a library there
+    that loads."""
+    from tpu_pathtracer_torch.accel import native_build as tnative
+    built = tnative.get_lib()
+    assert built is not None, tnative.last_error()
+    lib = tmp_path / "libsbvh.so"
+    monkeypatch.setattr(jnative, "_LIB", str(lib))
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_failed", True)
+    lib.write_bytes(b"")               # a compile that never finished
+    with pytest.raises(AssertionError, match="does not load"):
+        jax_native_lib(settle_s=0.05, timeout_s=5.0)
+    assert jnative._failed and jnative._lib is None
+    lib.unlink()
+    with pytest.raises(AssertionError, match="never appeared"):
+        jax_native_lib(settle_s=0.05, timeout_s=0.2)
+    assert jnative._failed
+    # another process's compile lands while the guard waits
+    timer = threading.Timer(0.3, shutil.copy, (tnative._LIB, str(lib)))
+    timer.start()
+    try:
+        got = jax_native_lib(settle_s=0.2, timeout_s=10.0)
+    finally:
+        timer.join()
+    assert got is not None and got is jnative._lib
+    assert jnative._failed is False

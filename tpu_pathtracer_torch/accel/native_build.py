@@ -9,6 +9,8 @@ available in this image, so the binding is a plain C ABI + ctypes.
 from __future__ import annotations
 
 import ctypes
+import contextlib
+import fcntl
 import os
 import subprocess
 import threading
@@ -20,55 +22,99 @@ _SRCS = [os.path.join(_HERE, "native", "sbvh.cpp"),
          os.path.join(_HERE, "native", "alias.cpp")]
 _LIB_DIR = os.path.join(_HERE, "native", "_build")
 _LIB = os.path.join(_LIB_DIR, "libsbvh.so")
+_LOCK = os.path.join(_LIB_DIR, "libsbvh.lock")
 
 _lock = threading.Lock()
 _lib = None
-_failed = False
+# a build or load that failed under the file lock: no retry would mend it
+_error = None
 
 
 def _compile():
-    os.makedirs(_LIB_DIR, exist_ok=True)
+    """Compile into a file of this process's own and rename it onto _LIB:
+    a process never sees a half-written library."""
+    tmp = "%s.%d.tmp" % (_LIB, os.getpid())
     cmd = ["g++", "-O2", "-march=native", "-std=c++17", "-shared", "-fPIC",
-           *_SRCS, "-o", _LIB]
-    subprocess.run(cmd, check=True, capture_output=True)
+           *_SRCS, "-o", tmp]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _LIB)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _stale():
+    return (not os.path.exists(_LIB)
+            or os.path.getmtime(_LIB) < max(os.path.getmtime(s)
+                                            for s in _SRCS))
+
+
+@contextlib.contextmanager
+def _file_lock():
+    """Held across processes around the compile and the load, so that no
+    process loads a library another one is still building."""
+    os.makedirs(_LIB_DIR, exist_ok=True)
+    with open(_LOCK, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _load():
+    lib = ctypes.CDLL(_LIB)
+    lib.sbvh_build.restype = ctypes.c_int
+    lib.sbvh_build.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int)),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.sbvh_free.argtypes = [ctypes.c_void_p]
+    lib.alias_build.restype = ctypes.c_int
+    lib.alias_build.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    return lib
 
 
 def get_lib():
-    """Returns the loaded ctypes lib or None when unavailable."""
-    global _lib, _failed
+    """Returns the loaded ctypes lib or None when unavailable (g++ missing
+    or failing; `last_error()` says why). Compiles it first when it is
+    missing or older than its sources; safe when several processes start
+    at once on one checkout."""
+    global _lib, _error
     with _lock:
         if _lib is not None:
             return _lib
-        if _failed:
+        if _error is not None:
             return None
         try:
-            if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < max(os.path.getmtime(s)
-                                                    for s in _SRCS)):
-                _compile()
-            lib = ctypes.CDLL(_LIB)
-            lib.sbvh_build.restype = ctypes.c_int
-            lib.sbvh_build.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_float,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_int)),
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_int)),
-                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_int),
-            ]
-            lib.sbvh_free.argtypes = [ctypes.c_void_p]
-            lib.alias_build.restype = ctypes.c_int
-            lib.alias_build.argtypes = [
-                ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_int32),
-            ]
-            _lib = lib
+            with _file_lock():
+                if _stale():
+                    _compile()
+                try:
+                    _lib = _load()
+                except OSError:
+                    # a library left by an older writer: build it anew
+                    _compile()
+                    _lib = _load()
             return _lib
-        except Exception:
-            _failed = True
+        except Exception as e:
+            _error = e
             return None
+
+
+def last_error():
+    """The exception that made get_lib() return None, or None."""
+    return _error
 
 
 def alias_build_native(p):

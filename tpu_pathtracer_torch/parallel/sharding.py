@@ -7,18 +7,27 @@ pool, or its own bounce loop, with lane0 = i*chunk on its own device. The
 RNG is counted per (frame, global pixel), so every sample value is the
 single-device render's; no collective runs during a frame.
 
-The JAX package runs the shards as one program under shard_map. Here they
-run one after another from the host, each on its device, and the image
-is assembled on the first device of the mesh. A mesh may name one device
-more than once: that is how one card runs several shards; shards on one
-card share the Renderer's captured regen wave (the same scene tensors, the
-same width), with lane0 a device input of each call. There is no
-multi-process (torch.distributed) layer, as the JAX package has none.
+The JAX package runs the shards as one program under shard_map
+(tpu_pathtracer/parallel/sharding.py:96-112). Here every shard is a render
+call in flight on its own device (tracer/device_loop.run_calls): the host
+starts every shard's call and launches each device's first steps before
+it waits on any status, then steps the devices in turn, each on its own
+stream and status ring, and a finished shard drops out. The image is
+assembled on the first device of the mesh once every shard has ended,
+the copies enqueued without blocking. This holds for both integrators.
+
+A mesh may name one device more than once: that is how one card runs
+several shards. Shards that name the same device share that device's
+captured steps (the Renderer's integrator for the same scene tensors and
+width, with lane0 a device input of each call) and so run one after
+another on its stream. There is no multi-process (torch.distributed)
+layer, as the JAX package has none.
 """
 from __future__ import annotations
 
 import torch
 
+from ..tracer.device_loop import run_calls
 from ..tracer.renderer import camera_vector
 
 
@@ -76,21 +85,24 @@ class ShardedRenderer:
     def render_frames(self, accum, camera, frame_start: int, n_frames: int,
                       with_stats=False):
         """Accumulate n_frames samples (frame numbers frame_start ..
-        frame_start + n_frames - 1), shard after shard. with_stats=True
-        returns (accum, waves, traced_rays) summed over the shards."""
-        parts, waves, rays = [], 0, 0.0
+        frame_start + n_frames - 1), every shard in flight at once.
+        with_stats=True returns (accum, waves, traced_rays) summed over the
+        shards."""
+        cam_vecs = {d: camera_vector(camera, d) for d in self._scenes}
+        calls = []
         for i, dev in enumerate(self.devices):
             lane0 = i * self.chunk
-            sl = accum[lane0:lane0 + self.chunk].to(dev)
-            cam_vec = camera_vector(camera, dev)
-            acc, w, r = self.base._render_frames_chunk(
-                self._scenes[dev], cam_vec, int(frame_start), lane0, sl,
-                int(n_frames), with_stats)
-            parts.append(acc.to(accum.device))
-            waves += w
-            rays += r
-        out = torch.cat(parts)
-        return (out, waves, rays) if with_stats else out
+            sl = accum[lane0:lane0 + self.chunk].to(dev, non_blocking=True)
+            calls.append((dev, self.base.chunk_call(
+                self._scenes[dev], cam_vecs[dev], frame_start, lane0, sl,
+                n_frames, with_stats)))
+        outs = run_calls(calls)
+        out = torch.cat([acc.to(accum.device, non_blocking=True)
+                         for acc, _, _ in outs])
+        if not with_stats:
+            return out
+        return (out, sum(int(w) for _, w, _ in outs),
+                sum(float(r) for _, _, r in outs))
 
     def accum_to_image(self, accum, frame_count):
         return self.base.accum_to_image(accum, frame_count)

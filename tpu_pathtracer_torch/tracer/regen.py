@@ -12,14 +12,15 @@ A render call is one device program, as the JAX package's `while_loop`
 dead-row flush) works on all P lanes with fixed shapes, keeps every count
 (samples spawned, paths alive, waves, rays) as a device scalar and reads
 nothing on the host. Each wave ends by writing its status (done, paths
-alive, samples left in the queue). On a CUDA device the wave is captured
-once as a CUDA graph (`_WaveGraph`) and replayed; the host learns that the
-call is done from an asynchronous copy of the status into pinned memory,
-checked with an event, with at most two waves in flight, so one wave past
-the end is replayed. A wave after the end is an exact no-op: it spawns
-nothing, traces an empty prefix and adds zeros. The CPU runs the same
-waves eagerly, and so does the card inside `no_graphs()`, the counterpart
-of `jax.disable_jit()`.
+alive, samples left in the queue). The machinery is tracer/device_loop.py,
+shared with the bounce integrator: on a CUDA device the wave is captured
+once as a CUDA graph and replayed; the host learns that the call is done
+from an asynchronous copy of the status into pinned memory, checked with
+an event, with at most device_loop.LAG = 2 waves in flight, so one wave
+past the end is replayed. A wave after the end is an exact no-op: it
+spawns nothing, traces an empty prefix and adds zeros. The CPU runs the
+same waves eagerly, and so does the card inside
+`device_loop.no_graphs()`, the counterpart of `jax.disable_jit()`.
 
 The drain. Once the queue is spent the live count can only fall, so a
 status that is two waves old bounds it from above; under the compact
@@ -84,15 +85,14 @@ price is device time: the host no longer dispatches each kernel.
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import functools
-import time
 
 import torch
 
 from ..core.vecmath import RAY_MIN, RAY_MAX
 from ..core.rng import RaySampler, wang_hash, MASK32
+from . import device_loop
 from .medium import medium_interaction
 from .wavefront import (
     RenderSettings, trace_rays, fetch_attributes, env_miss_weighted,
@@ -104,41 +104,8 @@ from .renderer import generate_camera_rays, lane_pixel_xy
 # the JAX regen's dup_stage names (tpu_pathtracer/tracer/regen.py)
 DUP_STAGES = ("respawn", "ext_trace", "fetch", "envmiss", "texture", "shade",
               "sample_env", "shadow_trace", "scatter", "permute")
-# waves in flight: the host replays wave i once it has seen the flag of
-# wave i - LAG
-LAG = 2
 # the drain's narrower widths, P // d for each d (compact order only)
 DRAIN_DIVS = (4, 16)
-WARMUP_WAVES = 3      # eager waves on a side stream before a capture
-# what a ring slot holds before its wave's status lands: not done, the
-# queue not spent, so the host runs the next wave at full width (a wave
-# after the end is a no-op)
-_UNSEEN = (0, 1 << 62, 1)
-_NO_GRAPHS = [0]
-# one memory pool a device for every captured wave: a wave keeps its whole
-# state in tensors allocated outside the capture, so what it allocates
-# inside is dead when its replay ends, and the replays of one device
-# follow one another on its stream
-_POOLS = {}
-
-
-@contextlib.contextmanager
-def no_graphs():
-    """Inside the block every regen render runs its waves eagerly, one
-    kernel launch after another, on the card as on the CPU: the
-    counterpart of `jax.disable_jit()`. The waves and the image are the
-    same; only the dispatch differs."""
-    _NO_GRAPHS[0] += 1
-    try:
-        yield
-    finally:
-        _NO_GRAPHS[0] -= 1
-
-
-def graphs_enabled(device):
-    """Whether a render on `device` replays captured waves: on a CUDA
-    device outside no_graphs()."""
-    return torch.device(device).type == "cuda" and not _NO_GRAPHS[0]
 
 
 def _check_settings(settings: RenderSettings):
@@ -507,151 +474,12 @@ def _compact(cfg, st, o, d, m, pdf_new, ell, r, lb, bn, mid, last,
     torch.sub(pmat[:, 15] >> 16, 1, out=st["medium_id"])
 
 
-def _launch_counts():
-    from ..ops import traverse_packet as tp
-    return {**tp.LAUNCHES, **tp.FORM_LAUNCHES}
-
-
-def _set_launch_counts(counts):
-    from ..ops import traverse_packet as tp
-    for table in (tp.LAUNCHES, tp.FORM_LAUNCHES):
-        for k in table:
-            table[k] = counts[k]
-
-
-def _add_launches(launches):
-    """Add the per-wave launches recorded at a capture to the traversal's
-    launch counts (ops.traverse_packet.LAUNCHES and FORM_LAUNCHES)."""
-    from ..ops import traverse_packet as tp
-    for table in (tp.LAUNCHES, tp.FORM_LAUNCHES):
-        for k in table:
-            table[k] += launches.get(k, 0)
-
-
-def _capture(step, device):
-    """Run step() WARMUP_WAVES times on a side stream, then capture one
-    call of it as a CUDA graph. Returns (graph, launches): the kernel
-    launches that one call counts (ops.traverse_packet's counts), which
-    every replay adds again. The warm-up and the capture are set-up: the
-    launch counts are left as they were before them."""
-    saved = _launch_counts()
-    with torch.cuda.device(device):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_WAVES):
-                step()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        pool = _POOLS.setdefault(str(device), torch.cuda.graph_pool_handle())
-        before = _launch_counts()
-        with torch.cuda.graph(graph, pool=pool):
-            step()
-    after = _launch_counts()
-    _set_launch_counts(saved)
-    return graph, {k: after[k] - before[k] for k in after
-                   if after[k] != before[k]}
-
-
-class _WaveGraph:
-    """A call's wave captured on a device at each of its drain widths, with
-    its own state (the graphs' static tensors; the narrower waves work on
-    views of it). The scene tensors it reads are kept alive."""
-
-    def __init__(self, cfg, scene, device):
-        self.scene = scene
-        self.st = new_state(cfg, device)
-        # the state of a finished call: the warm-up waves change nothing
-        reset(cfg, self.st, torch.zeros(16, device=device), 0, 0, None, 0)
-        self.graphs, self.launches, self.capture_s = {}, {}, 0.0
-        for w in drain_widths(cfg):
-            cfg_w, st_w = narrow(cfg, self.st, w)
-            t0 = time.perf_counter()
-            self.graphs[w], self.launches[w] = _capture(
-                functools.partial(regen_wave, cfg_w, scene, st_w), device)
-            self.capture_s += time.perf_counter() - t0
-        self.flags, self.events = _status_ring(device)
-
-    def steps(self):
-        """{width: replay}: each replay adds its wave's launches."""
-        def replay(w):
-            def run():
-                self.graphs[w].replay()
-                _add_launches(self.launches[w])
-            return run
-        return {w: replay(w) for w in self.graphs}
-
-
-def _status_ring(device):
-    """(flags, events) for _drive: LAG + 1 host copies of a wave's status,
-    pinned with an event each on a CUDA device, plain (events None) on the
-    CPU."""
-    if torch.device(device).type != "cuda":
-        return [torch.zeros((3,), dtype=torch.int64)
-                for _ in range(LAG + 1)], None
-    return ([torch.zeros((3,), dtype=torch.int64, pin_memory=True)
-             for _ in range(LAG + 1)],
-            [torch.cuda.Event() for _ in range(LAG + 1)])
-
-
-def _drive(steps, status, flags, events):
-    """Run waves until the status (the device int64 [done, alive, samples
-    left] that every wave writes) reads done. steps: {width: run one wave
-    at that width}. Before wave i the host waits for wave i - LAG's status,
-    copied without blocking into the host tensor flags[j] (pinned memory
-    on the card) and marked by events[j] (None on the CPU), recorded on
-    the stream of the status's device; with the queue spent it runs the
-    narrowest width that holds that wave's live count. Every slot starts
-    the call as _UNSEEN, so a slot that still holds an earlier call's
-    status is never read as this call's. Returns {width: waves run}
-    (LAG - 1 of them after the end when the call runs at least one
-    wave)."""
-    unseen = torch.tensor(_UNSEEN, dtype=torch.int64)
-    for f in flags:
-        f.copy_(unseen)
-    stream = None if events is None \
-        else torch.cuda.current_stream(status.device)
-    widths = sorted(steps)
-    ran = collections.Counter()
-    i = 0
-    while True:
-        w = widths[-1]
-        if i >= LAG:
-            j = (i - LAG) % (LAG + 1)
-            if events is not None:
-                events[j].synchronize()
-            done, alive, left = flags[j].tolist()
-            if done:
-                return dict(ran)
-            if left == 0:
-                w = min(x for x in widths if x >= alive)
-        steps[w]()
-        ran[w] += 1
-        j = i % (LAG + 1)
-        flags[j].copy_(status, non_blocking=True)
-        if events is not None:
-            events[j].record(stream)
-        i += 1
-
-
-def capture_key(N, device, scene):
-    """What a captured wave depends on besides the integrator's settings
-    and flags: the device, the lanes N of the call's image slice, torch's
-    deterministic mode (index_add_ takes another path under it) and the
-    identity of the scene's tensors (the graph reads their addresses)."""
-    import torch.utils.deterministic as tud
-    return (str(torch.device(device)), int(N),
-            torch.are_deterministic_algorithms_enabled(),
-            bool(tud.fill_uninitialized_memory),
-            tuple((k, ("tensor", id(v)) if isinstance(v, torch.Tensor)
-                   else repr(v)) for k, v in sorted(scene.items())))
-
-
 class RegenIntegrator:
     """integrate_frames of make_regen_integrator, with the wave its last
-    replayed call captured (`graph`, a _WaveGraph for one capture_key;
-    a call of another key captures anew) and the waves its last call ran
-    at each width (`last_waves`, over-run waves included)."""
+    replayed call captured (`graph`, a device_loop.StepGraph of one
+    capture_key, a graph a drain width; a call of another key captures
+    anew) and the waves its last call ran at each width (`last_waves`,
+    over-run waves included)."""
 
     def __init__(self, settings, width, height, with_stats=False,
                  stop_after_waves=0):
@@ -685,37 +513,44 @@ class RegenIntegrator:
         return cfg, st
 
     def __call__(self, scene, cam_vec, frame0, lane0, accum, n_frames):
-        device = accum.device
-        # the call's streams, events and captures are its device's, whatever
-        # device is current
-        with (torch.cuda.device(device) if device.type == "cuda"
-              else contextlib.nullcontext()):
-            return self._run(scene, cam_vec, frame0, lane0, accum, n_frames)
+        out = device_loop.run_call(accum.device, self.call(
+            scene, cam_vec, frame0, lane0, accum, n_frames))
+        if self.stop_after_waves:
+            return out
+        acc, waves, rays = out
+        if self.with_stats:
+            return acc, int(waves), float(rays)
+        return acc, waves
 
-    def _run(self, scene, cam_vec, frame0, lane0, accum, n_frames):
+    def call(self, scene, cam_vec, frame0, lane0, accum, n_frames):
+        """One call as a generator for device_loop.run_calls: each next()
+        launches one wave (the first captures on a new key); it returns
+        (accum, waves, rays) with the counts as 0-d device tensors (rays 0
+        without with_stats), or with stop_after_waves the pool."""
         device = accum.device
-        replay = graphs_enabled(device)
+        replay = device_loop.graphs_enabled(device)
         if replay:
             cfg = self._config(accum.shape[0], n_frames)
-            key = capture_key(cfg.N, device, scene)
+            key = device_loop.capture_key(cfg.N, device, scene)
             if key != self._graph_key:
                 self.graph = None            # its memory goes before the next
-                self.graph = _WaveGraph(cfg, scene, device)
+                self.graph = _capture_waves(cfg, scene, device)
                 self._graph_key = key
-            st, steps = self.graph.st, self.graph.steps()
-            ring = (self.graph.flags, self.graph.events)
+            st, steps, ring = (self.graph.st, self.graph.steps(),
+                               self.graph.ring)
             reset(cfg, st, cam_vec, frame0, lane0, accum, n_frames)
         else:
             cfg, st = self.start(scene, cam_vec, frame0, lane0, accum,
                                  n_frames)
-            steps = {}
-            for w in drain_widths(cfg):
-                cfg_w, st_w = narrow(cfg, st, w)
-                steps[w] = functools.partial(regen_wave, cfg_w, scene, st_w)
-            ring = _status_ring(device)
+            steps = _wave_steps(cfg, scene, st)
+            ring = device_loop.StatusRing(device)
         self.last_waves = {}
+        ran = collections.Counter()
         if int(n_frames) > 0 and cfg.N > 0:
-            self.last_waves = _drive(steps, st["status"], *ring)
+            ring.reset()
+            yield from device_loop.drive(_wave_launcher(steps, ran),
+                                         st["status"], ring)
+        self.last_waves = dict(ran)
         return self._result(st, copy=replay)
 
     def _result(self, st, copy):
@@ -733,9 +568,43 @@ class RegenIntegrator:
                 "bsdf_pdf", "rng", "pixel", "lbn", "bounce", "medium_id")},
                 "active": live, "waves": int(st["waves"]),
                 "next": int(st["next"]), "alive": int(st["alive"])}
-        if self.with_stats:
-            return out(st["accum"]), int(st["waves"]), float(st["rays"])
-        return out(st["accum"]), st["waves"].clone()
+        return out(st["accum"]), out(st["waves"]), out(st["rays"])
+
+
+def _wave_steps(cfg, scene, st):
+    """{width: run one wave on st at that width} for each drain width (the
+    narrower waves work on views of st)."""
+    steps = {}
+    for w in drain_widths(cfg):
+        cfg_w, st_w = narrow(cfg, st, w)
+        steps[w] = functools.partial(regen_wave, cfg_w, scene, st_w)
+    return steps
+
+
+def _capture_waves(cfg, scene, device):
+    """The StepGraph of a call's wave at each drain width on its own state
+    (the narrower waves work on views of it), captured on a finished
+    call's state, so the warm-up waves change nothing."""
+    st = new_state(cfg, device)
+    reset(cfg, st, torch.zeros(16, device=device), 0, 0, None, 0)
+    return device_loop.StepGraph(st, _wave_steps(cfg, scene, st), device,
+                                 keep=scene)
+
+
+def _wave_launcher(steps, ran):
+    """device_loop.drive's launch for waves: steps {width: run one wave};
+    with the queue spent (a status LAG waves old, whose live count can
+    only have fallen since) the narrowest width that holds the live count,
+    else the full width. Counts the waves run at each width in `ran`."""
+    widths = sorted(steps)
+
+    def launch(seen):
+        w = widths[-1]
+        if seen is not None and seen[2] == 0:
+            w = min(x for x in widths if x >= seen[1])
+        steps[w]()
+        ran[w] += 1
+    return launch
 
 
 def make_regen_integrator(settings: RenderSettings, width, height,

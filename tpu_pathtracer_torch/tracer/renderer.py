@@ -15,12 +15,13 @@ import functools
 import numpy as np
 import torch
 
-from ..core.rng import RaySampler, wang_hash
+from ..core.rng import RaySampler
 from ..core.vecmath import TWO_PI, PI, normalize, dot, cross
 from ..scene.config import SceneDesc, materials_to_arrays, MAT_SUBSURFACE
 from ..scene.camera import RenderCamera
 from ..scene.texture import make_quad_texture
 from ..convert import to_device
+from . import device_loop
 from .traverse import pack_stream
 from .wavefront import (
     RenderSettings, pack_tri_attributes, pack_mat_table, pack_envtex_quad,
@@ -195,11 +196,12 @@ class Renderer:
     resolution-independent tensors are shared (the same objects, no copy)
     and only the lane tables are built anew.
 
-    The Renderer owns its regen integrators, as the JAX Renderer jits its
-    frame function once: `regen_integrator` builds one per (settings,
-    with_stats, stop_after_waves) and regen.capture_key (device, lanes,
-    deterministic mode, scene tensors), each with its captured wave
-    (tracer/regen.py), and keeps the MAX_INTEGRATORS most recent."""
+    The Renderer owns its integrators, as the JAX Renderer jits its frame
+    function once: `regen_integrator` and `bounce_integrator` build one per
+    (settings, flags) and device_loop.capture_key (device, lanes,
+    deterministic mode, scene tensors), each with its captured steps
+    (tracer/device_loop.py), and keep the MAX_INTEGRATORS most recent.
+    `integrator` is the one of settings.integrator."""
 
     MAX_INTEGRATORS = 16
 
@@ -259,27 +261,51 @@ class Renderer:
         self.scene = scene
         self._integrators = collections.OrderedDict()
 
+    def _cached(self, key, build):
+        fn = self._integrators.get(key)
+        if fn is None:
+            fn = build()
+            self._integrators[key] = fn
+            while len(self._integrators) > self.MAX_INTEGRATORS:
+                self._integrators.popitem(last=False)
+        self._integrators.move_to_end(key)
+        return fn
+
+    def _key(self, scene, n_lanes):
+        scene = self.scene if scene is None else scene
+        if n_lanes is None:
+            n_lanes = min(self.width * self.height, self.lane_chunk)
+        return device_loop.capture_key(n_lanes, scene["lane_px"].device,
+                                       scene)
+
     def regen_integrator(self, with_stats=False, stop_after_waves=0,
                          scene=None, n_lanes=None):
         """The regen integrate_frames of the current settings for calls on
         `scene` (default: self.scene) of n_lanes lanes (default: a whole
         lane chunk), built at its first use and reused after."""
         from . import regen
-        scene = self.scene if scene is None else scene
-        if n_lanes is None:
-            n_lanes = min(self.width * self.height, self.lane_chunk)
-        key = (self.settings, bool(with_stats), int(stop_after_waves)) \
-            + regen.capture_key(n_lanes, scene["lane_px"].device, scene)
-        fn = self._integrators.get(key)
-        if fn is None:
-            fn = regen.make_regen_integrator(
-                self.settings, self.width, self.height,
-                with_stats=with_stats, stop_after_waves=stop_after_waves)
-            self._integrators[key] = fn
-            while len(self._integrators) > self.MAX_INTEGRATORS:
-                self._integrators.popitem(last=False)
-        self._integrators.move_to_end(key)
-        return fn
+        key = ("regen", self.settings, bool(with_stats),
+               int(stop_after_waves)) + self._key(scene, n_lanes)
+        return self._cached(key, lambda: regen.make_regen_integrator(
+            self.settings, self.width, self.height, with_stats=with_stats,
+            stop_after_waves=stop_after_waves))
+
+    def bounce_integrator(self, with_stats=False, scene=None, n_lanes=None):
+        """The bounce integrator (wavefront.make_integrator) of the current
+        settings, built and kept as regen_integrator's."""
+        from . import wavefront
+        key = ("bounce", self.settings, bool(with_stats)) \
+            + self._key(scene, n_lanes)
+        return self._cached(key, lambda: wavefront.make_integrator(
+            self.settings, with_stats=with_stats))
+
+    def integrator(self, with_stats=False, scene=None, n_lanes=None):
+        """The integrator that settings.integrator names."""
+        if self.settings.integrator == "regen":
+            return self.regen_integrator(with_stats, scene=scene,
+                                         n_lanes=n_lanes)
+        return self.bounce_integrator(with_stats, scene=scene,
+                                      n_lanes=n_lanes)
 
     def zeros_accum(self):
         return torch.zeros((self.width * self.height, 3), dtype=torch.float32,
@@ -289,44 +315,17 @@ class Renderer:
         """One progressive sample per pixel; frame_number starts at 1."""
         return self.render_frames(accum, camera, frame_number, 1)
 
-    def _render_chunk(self, scene, cam_vec, frame_hash, lane0, accum_chunk,
-                      integrate, stats):
-        """Render 1 spp of the bounce integrator `integrate` for the lanes
-        [lane0, lane0 + n) and add it to accum_chunk [n,3]."""
-        n = accum_chunk.shape[0]
-        device = accum_chunk.device
-        lane_ids = lane0 + torch.arange(n, dtype=torch.int64, device=device)
-        rng = RaySampler.init(frame_hash, lane_ids)
-        # lane -> pixel through the padded block-swizzle tables; pixel_y 0
-        # is the top of the image
-        pixel_x = scene["lane_px"][lane0:lane0 + n].to(torch.float32)
-        pixel_y = scene["lane_py"][lane0:lane0 + n].to(torch.float32)
-        rng, orig, raydir = generate_camera_rays(cam_vec, rng, pixel_x,
-                                                 pixel_y)
-        rng, radiance = integrate(scene, rng, orig, raydir, cam_vec[15],
-                                  stats)
-        return accum_chunk + radiance
-
-    def _render_frames_chunk(self, scene, cam_vec, frame0, lane0,
-                             accum_chunk, n_frames, with_stats):
-        """n_frames samples per lane of one chunk. Returns (accum, waves,
-        traced rays); waves counts bounces for the bounce integrator, and
-        the ray count is 0 without with_stats."""
-        if self.settings.integrator == "regen":
-            fn = self.regen_integrator(with_stats, scene=scene,
-                                       n_lanes=accum_chunk.shape[0])
-            out = fn(scene, cam_vec, frame0, lane0, accum_chunk, n_frames)
-            return out if with_stats else (out[0], 0, 0.0)
-        from .wavefront import make_integrator
-        integrate = make_integrator(self.settings)
-        stats = {} if with_stats else None
-        acc = accum_chunk
-        for i in range(n_frames):
-            acc = self._render_chunk(scene, cam_vec, wang_hash(frame0 + i),
-                                     lane0, acc, integrate, stats)
-        if stats is None:
-            return acc, 0, 0.0
-        return acc, stats.get("bounces", 0), float(stats.get("rays", 0.0))
+    def chunk_call(self, scene, cam_vec, frame0, lane0, accum_chunk,
+                   n_frames, with_stats=False):
+        """One call of the current integrator on the lanes [lane0, lane0 +
+        n) of `scene`'s device, as a generator for device_loop.run_calls:
+        n_frames samples per lane added to accum_chunk [n,3]. It returns
+        (accum, waves, rays): regen waves or bounces and the traced rays
+        (0 without with_stats), as 0-d device tensors."""
+        fn = self.integrator(with_stats, scene=scene,
+                             n_lanes=accum_chunk.shape[0])
+        return fn.call(scene, cam_vec, int(frame0), int(lane0), accum_chunk,
+                       int(n_frames))
 
     def render_frames(self, accum, camera: RenderCamera, frame_start: int,
                       n_frames: int, with_stats=False):
@@ -341,20 +340,23 @@ class Renderer:
             spans, chunk = [(0, n)], n
         else:
             spans = [(l0, min(l0 + chunk, n)) for l0 in range(0, n, chunk)]
-        out, waves, rays = [], 0, 0.0
+        calls = []
         for lane0, lane1 in spans:
             sl = accum[lane0:lane1]
             pad = chunk - (lane1 - lane0)
             if pad:
                 sl = torch.cat([sl, sl.new_zeros((pad, 3))])
-            res, w, r = self._render_frames_chunk(
-                self.scene, cam_vec, int(frame_start), lane0, sl,
-                int(n_frames), with_stats)
-            out.append(res[:lane1 - lane0] if pad else res)
-            waves += w
-            rays += r
-        acc = out[0] if len(out) == 1 else torch.cat(out)
-        return (acc, waves, rays) if with_stats else acc
+            calls.append((self.device, self.chunk_call(
+                self.scene, cam_vec, frame_start, lane0, sl, n_frames,
+                with_stats)))
+        outs = device_loop.run_calls(calls)
+        parts = [res[:lane1 - lane0] for (res, _, _), (lane0, lane1)
+                 in zip(outs, spans)]
+        acc = parts[0] if len(parts) == 1 else torch.cat(parts)
+        if not with_stats:
+            return acc
+        return (acc, sum(int(w) for _, w, _ in outs),
+                sum(float(r) for _, _, r in outs))
 
     def accum_to_buffer(self, accum):
         """Un-swizzle the lane-ordered accumulation into an [H,W,3] buffer."""

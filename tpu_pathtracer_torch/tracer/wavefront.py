@@ -3,11 +3,17 @@
 
 Every stage is plain tensor code over lane columns. What changed from the
 JAX version: `gather_material` is a row gather (the one-hot matmul was a
-TPU choice). `make_integrator` is the classic bounce integrator.
+TPU choice). `make_integrator` is the classic bounce integrator, one
+device program as the JAX package's `while_loop` inside the Renderer's
+`fori_loop` makes it (tpu_pathtracer/tracer/wavefront.py:575-794,
+renderer.py:310-326): a call's frames are fixed-shape steps (frame_start,
+bounce_step, frame_end) over all lanes with every count on the device,
+captured and replayed through tracer/device_loop.py on a CUDA device.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -15,7 +21,7 @@ import torch
 from ..core.vecmath import (
     PI, INV_PI, RAY_MIN, RAY_MAX, normalize, reflect, barycentric, dot,
 )
-from ..core.rng import RaySampler
+from ..core.rng import RaySampler, wang_hash
 from ..scene.config import (
     MAT_EMIT, MAT_DIFF, MAT_GLASS, MAT_REFL, MAT_DIFF_REFL, MAT_FRESNEL,
     MAT_NULL, MAT_SUBSURFACE,
@@ -29,6 +35,7 @@ from ..materials.bsdf import (
     lambertian_sample, specular_glass_sample, ggx_reflection_sample,
     rough_glass_sample, microfacet_interface_sample, fresnel_blend_sample,
 )
+from . import device_loop
 from .envsample import power_heuristic, sample_env
 from .traverse import intersect_scene
 from .medium import medium_interaction
@@ -549,76 +556,255 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
             surf & term, n_shadow)
 
 
-def make_integrator(settings: RenderSettings):
-    """The classic bounce integrator (JAX `wavefront.make_integrator`):
-    every bounce runs over all N lanes with an `active` mask until no lane
-    is active or bounce_max is reached, one host read a bounce (the active
-    count). The environment is fetched once after the loop, for the
-    direction and throughput each lane left the scene with.
+@dataclasses.dataclass(frozen=True)
+class BounceConfig:
+    """What a bounce call's steps depend on: the settings, with_stats, and
+    N, the lanes of the call's image slice."""
+    settings: RenderSettings
+    with_stats: bool
+    N: int
 
-    Returns integrate(scene, rng, orig, raydir, env_rotation, stats=None)
-    -> (rng, radiance [N,3]). A `stats` dict, when given, gains the
-    bounces run ("bounces") and the rays traced, extension and shadow
-    ("rays", a device scalar)."""
 
-    def integrate(scene, rng, orig, raydir, env_rotation, stats=None):
-        N = orig.shape[0]
-        device = orig.device
-        f32 = dict(dtype=torch.float32, device=device)
-        mask = torch.ones((N, 3), **f32)
-        accum = torch.zeros((N, 3), **f32)
-        active = torch.ones((N,), dtype=torch.bool, device=device)
-        lbn = torch.full((N,), settings.bounce_min, dtype=torch.int32,
-                         device=device)
-        medium_id = torch.full((N,), -1, dtype=torch.int32, device=device)
-        miss_dir = torch.zeros((N, 3), **f32)
-        miss_mask = torch.zeros((N, 3), **f32)
-        miss_bpdf = torch.full((N,), -1.0, **f32)
-        bsdf_pdf = torch.full((N,), -1.0, **f32)
-        rays = torch.zeros((), dtype=torch.float64, device=device)
-        light = distant_light(settings, device)
-        bounce = 0
-        while bounce < settings.bounce_max:
-            n_active = int(active.sum())        # the bounce's one host read
-            if n_active == 0:
-                break
-            rays += n_active
-            hit_slot, hit_t = trace_rays(scene, settings, orig, raydir,
-                                         RAY_MIN, RAY_MAX, anyhit=False,
-                                         active=active)
-            surf = active
-            if settings.has_media:
-                rng, orig, raydir, mask, sampled_medium = medium_interaction(
-                    scene, rng, orig, raydir, mask, hit_t, medium_id, active)
-                lbn = torch.where(
-                    sampled_medium,
-                    torch.clamp_max(lbn + 1, settings.bounce_max), lbn)
-                surf = active & ~sampled_medium
-            # the environment miss, deferred: record the direction, the
-            # throughput and the pdf of the last diffuse draw
-            miss = surf & (hit_t > 1e10)
-            miss_dir = torch.where(miss[:, None], raydir, miss_dir)
-            miss_mask = torch.where(miss[:, None], mask, miss_mask)
-            miss_bpdf = torch.where(miss, bsdf_pdf, miss_bpdf)
-            active = active & ~miss
-            surf = surf & ~miss
+def new_bounce_state(cfg: BounceConfig, device):
+    """The tensors the bounce steps read and write in place: the lane
+    columns of one frame's paths (rng, orig, dir, mask, the radiance `rad`
+    summed so far, active, lbn, medium_id, the deferred env miss's
+    miss_dir / miss_mask / miss_bpdf, bsdf_pdf), the device scalars
+    (bounce: the index within the frame; bounces: the bounces run; rays;
+    frame0, lane0, frame: the frames started; frames_left), the status a
+    bounce ends with (int64 [done, active lanes, frames left]), the camera
+    vector and the image slice `accum` [N,3]. Filled by reset_bounce()
+    and frame_start()."""
+    N = cfg.N
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    st = {k: torch.zeros((N, 3), **f32) for k in (
+        "orig", "dir", "mask", "rad", "miss_dir", "miss_mask")}
+    st.update(rng=torch.zeros((N,), **i64), lane=torch.arange(N, **i64),
+              active=torch.zeros((N,), dtype=torch.bool, device=device),
+              lbn=torch.zeros((N,), **i32), medium_id=torch.zeros((N,), **i32),
+              miss_bpdf=torch.zeros((N,), **f32),
+              bsdf_pdf=torch.zeros((N,), **f32),
+              rays=torch.zeros((), dtype=torch.float64, device=device),
+              status=torch.zeros((3,), **i64),
+              cam_vec=torch.zeros((16,), **f32),
+              accum=torch.zeros((N, 3), **f32),
+              light=distant_light(cfg.settings, device))
+    for k in ("bounce", "bounces", "frame0", "lane0", "frame",
+              "frames_left"):
+        st[k] = torch.zeros((), **i64)
+    return st
 
-            hitpoint = orig + raydir * hit_t[:, None]
-            hit = fetch_attributes(scene, hit_slot, hitpoint) + (hitpoint,)
-            (rng, orig, raydir, mask, bsdf_pdf, lbn, medium_id, accum, ended,
-             n_shadow) = shade_hits(
-                scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
-                medium_id, surf, hit, None, accum, env_rotation, light,
-                count_rays=stats is not None)
-            rays += n_shadow
-            bounce += 1
-            active = active & ~ended & (bounce < lbn)
 
-        if stats is not None:
-            stats["bounces"] = stats.get("bounces", 0) + bounce
-            stats["rays"] = stats.get("rays", 0) + rays
-        env = env_miss_weighted(scene, settings, miss_dir, miss_bpdf,
-                                env_rotation)
-        return rng, accum + miss_mask * env
+def reset_bounce(cfg: BounceConfig, st, cam_vec, frame0, lane0, accum,
+                 n_frames):
+    """Start a call on state st: the counts at 0, the call's inputs copied
+    in. Device work only: fills and device copies."""
+    for k in ("bounces", "rays", "frame", "status"):
+        st[k].zero_()
+    st["frame0"].fill_(int(frame0))
+    st["lane0"].fill_(int(lane0))
+    st["frames_left"].fill_(int(n_frames))
+    st["cam_vec"].copy_(cam_vec)
+    st["accum"].copy_(accum)
 
-    return integrate
+
+def frame_start(cfg: BounceConfig, scene, st):
+    """A frame's camera rays on every lane (RNG seeded by wang_hash(frame0
+    + frame) and the global lane, lane -> pixel through the padded
+    block-swizzle tables) and every path column reset: one frame of the
+    JAX Renderer's fori_loop body before its integrator."""
+    from .renderer import generate_camera_rays
+    s = cfg.settings
+    lane_ids = st["lane0"] + st["lane"]
+    rng = RaySampler.init(wang_hash(st["frame0"] + st["frame"]), lane_ids)
+    # pixel_y 0 is the top of the image
+    pixel_x = scene["lane_px"][lane_ids].to(torch.float32)
+    pixel_y = scene["lane_py"][lane_ids].to(torch.float32)
+    rng, orig, raydir = generate_camera_rays(st["cam_vec"], rng, pixel_x,
+                                             pixel_y)
+    st["rng"].copy_(rng)
+    st["orig"].copy_(orig)
+    st["dir"].copy_(raydir)
+    st["mask"].fill_(1.0)
+    for k in ("rad", "miss_dir", "miss_mask", "bounce"):
+        st[k].zero_()
+    st["active"].fill_(True)
+    st["lbn"].fill_(s.bounce_min)
+    st["medium_id"].fill_(-1)
+    for k in ("miss_bpdf", "bsdf_pdf"):
+        st[k].fill_(-1.0)
+    st["frames_left"].sub_(1)
+
+
+def bounce_step(cfg: BounceConfig, scene, st):
+    """One bounce over all N lanes under the `active` mask, in place: the
+    body of the JAX integrator's while_loop. Every shape is fixed and
+    nothing is read on the host, so the same call runs eagerly or
+    captured in a CUDA graph. "bounces" grows only when some lane was
+    active at the start (the while_loop's trip count). A bounce after
+    every lane has stopped, or after bounce_max bounces, changes no bit of
+    the frame's radiance, its deferred miss, the path columns or the
+    counts: every write is masked by the (empty) active set; only the RNG
+    of the lanes moves, and it is seeded anew at the next frame_start.
+    Ends by writing the status [done, active lanes, frames left], done
+    when no lane is active or the frame has run bounce_max bounces."""
+    s = cfg.settings
+    go = st["active"].any() & (st["bounce"] < s.bounce_max)
+    active = st["active"] & go
+    if cfg.with_stats:
+        st["rays"].add_(active.sum())
+    rng, orig, raydir, mask, lbn = (st["rng"], st["orig"], st["dir"],
+                                    st["mask"], st["lbn"])
+    hit_slot, hit_t = trace_rays(scene, s, orig, raydir, RAY_MIN, RAY_MAX,
+                                 anyhit=False, active=active)
+    surf = active
+    if s.has_media:
+        rng, orig, raydir, mask, sampled_medium = medium_interaction(
+            scene, rng, orig, raydir, mask, hit_t, st["medium_id"], active)
+        lbn = torch.where(sampled_medium,
+                          torch.clamp_max(lbn + 1, s.bounce_max), lbn)
+        surf = active & ~sampled_medium
+    # the environment miss, deferred: record the direction, the throughput
+    # and the pdf of the last diffuse draw
+    miss = surf & (hit_t > 1e10)
+    torch.where(miss[:, None], raydir, st["miss_dir"], out=st["miss_dir"])
+    torch.where(miss[:, None], mask, st["miss_mask"], out=st["miss_mask"])
+    torch.where(miss, st["bsdf_pdf"], st["miss_bpdf"], out=st["miss_bpdf"])
+    live = active & ~miss
+    surf = surf & ~miss
+
+    hitpoint = orig + raydir * hit_t[:, None]
+    hit = fetch_attributes(scene, hit_slot, hitpoint) + (hitpoint,)
+    (rng, orig, raydir, mask, bsdf_pdf, lbn, medium_id, rad, ended,
+     n_shadow) = shade_hits(
+        scene, s, rng, orig, raydir, mask, st["bsdf_pdf"], lbn,
+        st["medium_id"], surf, hit, None, st["rad"], st["cam_vec"][15],
+        st["light"], count_rays=cfg.with_stats)
+    if cfg.with_stats:
+        st["rays"].add_(n_shadow)
+    bounce = st["bounce"] + go.to(torch.int64)
+    live = live & ~ended & (bounce < lbn)
+    for k, v in (("rng", rng), ("orig", orig), ("dir", raydir),
+                 ("mask", mask), ("bsdf_pdf", bsdf_pdf), ("lbn", lbn),
+                 ("medium_id", medium_id), ("rad", rad), ("active", live),
+                 ("bounce", bounce)):
+        st[k].copy_(v)
+    st["bounces"].add_(go.to(torch.int64))
+    more = live.any() & (bounce < s.bounce_max)
+    torch.stack([(~more).to(torch.int64), live.sum(), st["frames_left"]],
+                out=st["status"])
+
+
+def frame_end(cfg: BounceConfig, scene, st):
+    """The deferred environment fetch, once for the direction and
+    throughput each lane left the scene with, and the frame's radiance
+    added to the image slice."""
+    env = env_miss_weighted(scene, cfg.settings, st["miss_dir"],
+                            st["miss_bpdf"], st["cam_vec"][15])
+    st["accum"].add_(st["rad"] + st["miss_mask"] * env)
+    st["frame"].add_(1)
+
+
+class BounceIntegrator:
+    """The classic bounce integrator (JAX `wavefront.make_integrator` under
+    the Renderer's `fori_loop`) as one device program. A call's frames run
+    as fixed-shape steps on the lanes of its image slice: frame_start,
+    up to bounce_max bounce_steps, frame_end. On a CUDA device the three
+    are captured once for a device_loop.capture_key (`graph`, a
+    device_loop.StepGraph) and replayed; the CPU, and the card inside
+    device_loop.no_graphs(), run them eagerly.
+
+    The host launches at most bounce_max bounces a frame. It ends a frame
+    without waiting when it has launched bounce_max, and early only on a
+    status device_loop.LAG bounces old that reads done; the LAG - 1
+    bounces launched after such a frame's end are no-ops (bounce_step).
+    `last_launched` is the bounces the last call launched; the bounces it
+    ran are its count, so the over-run is the difference."""
+
+    def __init__(self, settings, with_stats=False):
+        self.settings = settings
+        self.with_stats = bool(with_stats)
+        self.graph, self._graph_key = None, None
+        self.last_launched = 0
+
+    def _config(self, N):
+        return BounceConfig(self.settings, self.with_stats, int(N))
+
+    def start(self, scene, cam_vec, frame0, lane0, accum, n_frames):
+        """(cfg, st): a fresh eager state for a call, before its first
+        frame; frame_start / bounce_step / frame_end(cfg, scene, st) step
+        it by hand."""
+        cfg = self._config(accum.shape[0])
+        st = new_bounce_state(cfg, accum.device)
+        reset_bounce(cfg, st, cam_vec, frame0, lane0, accum, n_frames)
+        return cfg, st
+
+    def __call__(self, scene, cam_vec, frame0, lane0, accum, n_frames):
+        acc, bounces, rays = device_loop.run_call(accum.device, self.call(
+            scene, cam_vec, frame0, lane0, accum, n_frames))
+        if self.with_stats:
+            return acc, int(bounces), float(rays)
+        return acc, bounces
+
+    def call(self, scene, cam_vec, frame0, lane0, accum, n_frames):
+        """One call as a generator for device_loop.run_calls: each next()
+        launches one step (the first captures on a new key); it returns
+        (accum, bounces, rays), the counts 0-d device tensors (rays 0
+        without with_stats)."""
+        device = accum.device
+        replay = device_loop.graphs_enabled(device)
+        cfg = self._config(accum.shape[0])
+        if replay:
+            key = device_loop.capture_key(cfg.N, device, scene)
+            if key != self._graph_key:
+                self.graph = None            # its memory goes before the next
+                st = new_bounce_state(cfg, device)
+                # the warm-ups and the capture run on this call's inputs
+                reset_bounce(cfg, st, cam_vec, frame0, lane0, accum, 1)
+                self.graph = device_loop.StepGraph(
+                    st, _bounce_steps(cfg, scene, st), device, keep=scene)
+                self._graph_key = key
+            st, steps, ring = (self.graph.st, self.graph.steps(),
+                               self.graph.ring)
+            reset_bounce(cfg, st, cam_vec, frame0, lane0, accum, n_frames)
+        else:
+            cfg, st = self.start(scene, cam_vec, frame0, lane0, accum,
+                                 n_frames)
+            steps = _bounce_steps(cfg, scene, st)
+            ring = device_loop.StatusRing(device)
+        self.last_launched = 0
+        launched = 0
+        if int(n_frames) > 0 and cfg.N > 0:
+            ring.reset()
+            bounce = steps["bounce"]
+            for _ in range(int(n_frames)):
+                steps["start"]()
+                yield
+                launched += yield from device_loop.drive(
+                    lambda seen: bounce(), st["status"], ring,
+                    limit=self.settings.bounce_max)
+                steps["end"]()
+                yield
+        self.last_launched = launched
+
+        def out(t):
+            return t.clone() if replay else t
+        return out(st["accum"]), out(st["bounces"]), out(st["rays"])
+
+
+def _bounce_steps(cfg, scene, st):
+    return {name: functools.partial(fn, cfg, scene, st) for name, fn in (
+        ("start", frame_start), ("bounce", bounce_step), ("end", frame_end))}
+
+
+def make_integrator(settings: RenderSettings, with_stats=False):
+    """The bounce integrator: a BounceIntegrator, whose call
+    integrate(scene, cam_vec, frame0, lane0, accum, n_frames) adds n_frames
+    samples per pixel (frames frame0 .. frame0 + n_frames - 1) to the lanes
+    [lane0, lane0 + N) of the image slice accum [N,3]. Returns (accum,
+    bounces) or, with with_stats, (accum, bounces, rays): the bounces run
+    (summed over the frames; a host int with with_stats, else a 0-d
+    device tensor) and the rays traced, extension and shadow."""
+    return BounceIntegrator(settings, with_stats=with_stats)

@@ -137,9 +137,20 @@ back to the CPU. Phases, each fatal on failure:
    counts; (11d) 2 shards on the mesh [cuda:0, cuda:0] equal the whole
    1-spp render bit for bit for regen and for bounce, and a sharded call
    runs under sync debug "error";
+12. the shade kernel (csrc/shade.cu, the surface BSDF draw, one launch a
+   regen wave and a bounce; its launches are counted on every path above,
+   and 10e / 11c hold them to the profiled shade_kernel events): (12a) at
+   P = 1,048,576 lanes of every material branch, with NaN normals on 5%
+   miss lanes, the kernel equals its plain version (ops/shade.py:
+   shade_plain) bit for bit in every output on every surface lane; the
+   bare launch and the plain version timed in turns beside the byte
+   bound; (12b) the TestObj regen and bounce renders at 1024x1024, 2 spp,
+   replayed with the kernel and with the plain shade, under torch's
+   deterministic algorithms: the gate statistics, and bit for bit;
 6. print the kernels line (rows 1-3 also carry their launches on the
    replayed bounce path, "launches_bounce", rows 1-2 on the viewer path,
-   "launches_viewer"), the card line, and the result line (last).
+   "launches_viewer"; the shade kernel both), the card line, and the
+   result line (last).
 
 Phases 4-11 replay captured steps (the default on a CUDA device): each
 renderer's first call of a key captures, and the timed calls come after a
@@ -150,7 +161,11 @@ rays, the table once, mask and outputs) over 3.35 TB/s and its operations over t
 card's 67 TFLOP/s FP32 rate: the steps this run's rays took (counted by
 3b) times 39, the FP32 arithmetic of a triangle step of csrc/traverse.cu
 (a node step has 48; compares not counted), so it is a lower bound. The
-row kernels are bound by bytes (tools/probe_dma.py: bound_bytes).
+row kernels are bound by bytes (tools/probe_dma.py: bound_bytes), and so
+is the shade kernel: the bytes this run's lanes need (ops/shade.py:
+io_bytes, 79-115 a lane by the lane's branch, and the material table
+once) over 3.35 TB/s, against at least SHADE_OPS_PER_LANE FP32 operations
+a lane that is not a null interface over 67 TFLOP/s.
 
 A `details` line carries every measurement as JSON. The BVH is built by
 the port's own accel/ (numpy + C++ built with g++; the line "BVH:" says
@@ -183,6 +198,19 @@ OPS_PER_STEP = 39          # FP32 arithmetic of a triangle step (node: 48)
 
 def log(*a):
     print(*a, flush=True)
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0 (the traversal's and the shade
+    kernel's: tracer/device_loop.launch_counts)."""
+    from tpu_pathtracer_torch.tracer import device_loop
+    device_loop.set_launch_counts(
+        {k: 0 for k in device_loop.launch_counts()})
+
+
+def read_counts():
+    from tpu_pathtracer_torch.tracer import device_loop
+    return device_loop.launch_counts()
 
 
 def card_line():
@@ -528,9 +556,7 @@ def timed_frames(np, torch, ops, r, rc, spp, tag):
     after. Returns the record and the image."""
     r.render_frames(r.zeros_accum(), rc, 1, 1, with_stats=True)
     torch.cuda.synchronize()
-    for counts in (ops.LAUNCHES, ops.FORM_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    zero_counts()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t_host = time.time()
@@ -540,7 +566,7 @@ def timed_frames(np, torch, ops, r, rc, spp, tag):
     stop.record()
     torch.cuda.synchronize()
     t_host = time.time() - t_host
-    launches = {**ops.LAUNCHES, **ops.FORM_LAUNCHES}
+    launches = read_counts()
     ms = start.elapsed_time(stop)
     img = acc.cpu().numpy() / spp
     assert img.shape == (r.width * r.height, 3), (tag, img.shape)
@@ -598,8 +624,11 @@ def measure_ab(root):
     (integrator="bounce", in the port since its bounce slice), the capture
     time where the checkout captures, max_memory_allocated, and the bare
     traversal launch on 1M coherent camera rays (closest hit over the whole
-    int prefix; any hit under a 50% mask) with ptxas's registers. Returns
-    the record."""
+    int prefix; any hit under a 50% mask) with ptxas's registers; the
+    dup_stage prices of the TestObj regen frame (profile_frame.price_stages
+    of that checkout's stages, frames (1, 3), as phase 9f), and, where the
+    checkout has the shade kernel (ops/shade.py), its bare launch and the
+    plain shade at P_SHADE lanes of every material. Returns the record."""
     import dataclasses
     import statistics
     import numpy as np
@@ -658,6 +687,28 @@ def measure_ab(root):
         {k: sp[k] for k in ("frames", "window_ms", "busy_ms", "idle_share")}
         for sp in (lo, hi)]}
     del rb
+    from tpu_pathtracer_torch.tracer.regen import DUP_STAGES
+    rp = Renderer(parts[0], parts[1], envmap=parts[2], texture=parts[3],
+                  width=W, height=W, base_scene=r.scene, device=dev)
+    prices = profile_frame.price_stages(rp, rc, DUP_STAGES, (1, 3))
+    rec["dup_prices"] = {k: {"price_ms": v["price_ms"],
+                             "bit_equal": v["bit_equal"]}
+                         for k, v in prices.items()}
+    del rp
+    torch.cuda.empty_cache()
+    rec["shade_kernel"] = None
+    if os.path.exists(os.path.join(rec["package"], "ops", "shade.py")):
+        from tpu_pathtracer_torch.ops import shade as shade_ops
+        inputs = shade_inputs()
+        s_scene, s_args, s_id, _ = inputs.mixed_inputs(P_SHADE, 12, dev)
+        fn = shade_ops.launch_fn(s_scene, *inputs.kernel_args(s_args, s_id))
+        rec["shade_kernel"] = {
+            "lanes": P_SHADE,
+            "kernel_ms": [cuda_ms(fn, 50), cuda_ms(fn, 50)],
+            "plain_ms": [cuda_ms(lambda: shade_ops.shade_plain(
+                s_scene, None, *s_args), 5) for _ in range(2)]}
+        del s_scene, s_args, s_id, fn
+        torch.cuda.empty_cache()
     o, d = camera_rays(W, dev)
     half = torch.from_numpy(
         np.random.default_rng(5).random(o.shape[0]) < 0.5).to(dev)
@@ -683,6 +734,21 @@ def measure_ab(root):
         torch.cuda.max_memory_allocated(dev) / 1e9
     rec["s"] = time.time() - t_start
     return rec
+
+
+def kernel_events(prof):
+    """Device kernel events of a finished torch.profiler session, from its
+    chrome trace: {"all", "traverse_kernel", "shade_kernel"} counts."""
+    import tempfile
+    from tpu_pathtracer_torch.utils.profiling import load_events
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        names = [e.get("name", "") for e in load_events(path)
+                 if e.get("cat") == "kernel"]
+    return {"all": len(names),
+            "traverse_kernel": sum("traverse_kernel" in n for n in names),
+            "shade_kernel": sum("shade_kernel" in n for n in names)}
 
 
 def event_ms(torch, fn):
@@ -732,7 +798,7 @@ def phase8(np, torch, ops, dev, fb, mats, envmap, texture, sss_parts, rc,
     bounce_s = dataclasses.replace(regen_s, integrator="bounce")
     r.settings = bounce_s
     b_rec, b_img = timed_frames(np, torch, ops, r, rc, 2, "8a bounce")
-    for k in ("traverse_closest", "traverse_anyhit"):
+    for k in ("traverse_closest", "traverse_anyhit", "shade"):
         assert b_rec["launches"][k] > 0, "bounce never launched %s" % k
     r.settings = regen_s
     g_rec, g_img = timed_frames(np, torch, ops, r, rc, 2, "8a regen")
@@ -913,8 +979,7 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
         sess.step([])                               # warm-up (full, 4 spp)
         sess.step([" "])                            # and a preview
         torch.cuda.synchronize()
-        for k in ops.LAUNCHES:
-            ops.LAUNCHES[k] = 0
+        zero_counts()
         times = {"preview": [], "full": []}
         for events, dt in viewer_script(interactive.KEYS,
                                         interactive.ENV_KEYS):
@@ -923,9 +988,9 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
             times[sess.kind].append((time.perf_counter() - t0) * 1e3)
             assert img.shape == (VH, VW, 3) and img.dtype == np.uint8
             clock[0] += dt
-        viewer_launches = dict(ops.LAUNCHES)
+        viewer_launches = read_counts()
         assert sess.step(["q"]) is None
-        for k in ("traverse_closest", "traverse_anyhit"):
+        for k in ("traverse_closest", "traverse_anyhit", "shade"):
             assert viewer_launches[k] > 0, "the viewer never launched " + k
         assert sess.kind == "full" and sess.frame == 4 * batch, sess.frame
         assert len(times["preview"]) == len(interactive.KEYS) + len(
@@ -1078,7 +1143,6 @@ def phase10(np, torch, ops, dev, scenes, W):
     """Phase 10: the replayed regen frame against the eager one, its
     timings, capture time and memory. scenes: {"testobj", "sss", "media"}
     -> scene parts. Returns the record."""
-    import tempfile
     from tpu_pathtracer_torch.scene import demo
     from tpu_pathtracer_torch.tracer import device_loop
     from tpu_pathtracer_torch.tracer.renderer import Renderer
@@ -1091,14 +1155,11 @@ def phase10(np, torch, ops, dev, scenes, W):
                 demo.default_camera(size, size).build_render_camera())
 
     def counted(r, rc, spp, stats=True):
-        for table in (ops.LAUNCHES, ops.FORM_LAUNCHES):
-            for k in table:
-                table[k] = 0
+        zero_counts()
         out = r.render_frames(r.zeros_accum(), rc, 1, spp,
                               with_stats=stats)
         torch.cuda.synchronize()
-        return out, {k: v for k, v in {**ops.LAUNCHES,
-                                       **ops.FORM_LAUNCHES}.items() if v}
+        return out, {k: v for k, v in read_counts().items() if v}
 
     def captures(r, stats=True):
         g = r.regen_integrator(stats).graph
@@ -1165,30 +1226,32 @@ def phase10(np, torch, ops, dev, scenes, W):
 
     # ---- 10e. the launch counts against what the device ran ----
     # a replay launches no wrapper: its counts are the capture's, added a
-    # replay; the profiler's traverse_kernel events of one replayed call
-    # must number what the counts say for that call
+    # replay; the profiler's traverse_kernel and shade_kernel events of
+    # one replayed call must number what the counts say for that call
     from torch.profiler import ProfilerActivity, profile
-    from tpu_pathtracer_torch.utils.profiling import load_events
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, p_counts = counted(r, rc, 1)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = os.path.join(tmp, "replay.json")
-        prof.export_chrome_trace(path)
-        del prof
-        n_events = sum(1 for e in load_events(path)
-                       if e.get("cat") == "kernel"
-                       and "traverse_kernel" in e.get("name", ""))
+    ev = kernel_events(prof)
+    del prof
+    by_width = r.regen_integrator(True).last_waves
     n_counted = sum(v for k, v in p_counts.items() if k in ops.LAUNCHES)
-    assert n_events == n_counted > 0, (n_events, p_counts)
-    rec["profiled_launches"] = {"traverse_kernel_events": n_events,
-                                "counted": p_counts,
-                                "waves_by_width":
-                                    r.regen_integrator(True).last_waves}
-    log("  10e a profiled replayed 1-spp call: %d traverse_kernel events "
-        "on the device = %d launches counted %s (waves by width %s, the "
-        "one past the end included)" % (n_events, n_counted, p_counts,
-                                        r.regen_integrator(True).last_waves))
+    assert ev["traverse_kernel"] == n_counted > 0, (ev, p_counts)
+    assert ev["shade_kernel"] == p_counts.get("shade", 0) > 0, \
+        (ev, p_counts)
+    waves_run = sum(by_width.values())
+    rec["profiled_launches"] = {
+        "traverse_kernel_events": ev["traverse_kernel"],
+        "shade_kernel_events": ev["shade_kernel"],
+        "kernel_events": ev["all"], "counted": p_counts,
+        "waves_by_width": by_width,
+        "kernels_per_wave": ev["all"] / waves_run}
+    log("  10e a profiled replayed 1-spp call: %d traverse_kernel and %d "
+        "shade_kernel events on the device = the launches counted %s "
+        "(waves by width %s, the one past the end included); %d kernels "
+        "in all, %.0f a wave" % (ev["traverse_kernel"], ev["shade_kernel"],
+                                 p_counts, by_width, ev["all"],
+                                 ev["all"] / waves_run))
 
     # ---- 10c. times: replayed and eager in turns ----
     def marginal(rr, rcc):
@@ -1274,7 +1337,6 @@ def phase11(np, torch, ops, dev, scenes, W, bounce_profile):
     parts; bounce_profile: phase 9e's profile of the replayed TestObj
     bounce frames. Returns the record."""
     import dataclasses
-    import tempfile
     from tpu_pathtracer_torch.scene import demo
     from tpu_pathtracer_torch.tracer import device_loop
     from tpu_pathtracer_torch.tracer.renderer import Renderer
@@ -1289,13 +1351,10 @@ def phase11(np, torch, ops, dev, scenes, W, bounce_profile):
         return r, demo.default_camera(size, size).build_render_camera()
 
     def counted(r, rc, spp, stats=True):
-        for table in (ops.LAUNCHES, ops.FORM_LAUNCHES):
-            for k in table:
-                table[k] = 0
+        zero_counts()
         out = r.render_frames(r.zeros_accum(), rc, 1, spp, with_stats=stats)
         torch.cuda.synchronize()
-        return out, {k: v for k, v in {**ops.LAUNCHES,
-                                       **ops.FORM_LAUNCHES}.items() if v}
+        return out, {k: v for k, v in read_counts().items() if v}
 
     # ---- 11a. replayed = eager bit for bit, deterministic, 256x256 ----
     rec["bit_for_bit"] = {}
@@ -1392,26 +1451,27 @@ def phase11(np, torch, ops, dev, scenes, W, bounce_profile):
 
     # ---- 11c. the launch counts against what the device ran ----
     from torch.profiler import ProfilerActivity, profile
-    from tpu_pathtracer_torch.utils.profiling import load_events
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, p_counts = counted(r, rc, 1)
     p_launched = r.bounce_integrator(True).last_launched
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = os.path.join(tmp, "bounce.json")
-        prof.export_chrome_trace(path)
-        del prof
-        n_events = sum(1 for e in load_events(path)
-                       if e.get("cat") == "kernel"
-                       and "traverse_kernel" in e.get("name", ""))
+    ev = kernel_events(prof)
+    del prof
     n_counted = sum(v for k, v in p_counts.items() if k in ops.LAUNCHES)
-    assert n_events == n_counted > 0, (n_events, p_counts)
-    rec["profiled_launches"] = {"traverse_kernel_events": n_events,
-                                "counted": p_counts,
-                                "bounces_launched": p_launched}
+    assert ev["traverse_kernel"] == n_counted > 0, (ev, p_counts)
+    assert ev["shade_kernel"] == p_counts.get("shade", 0) == p_launched, \
+        (ev, p_counts, p_launched)
+    rec["profiled_launches"] = {
+        "traverse_kernel_events": ev["traverse_kernel"],
+        "shade_kernel_events": ev["shade_kernel"],
+        "kernel_events": ev["all"], "counted": p_counts,
+        "bounces_launched": p_launched,
+        "kernels_per_bounce": ev["all"] / p_launched}
     log("  11c a profiled replayed 1-spp bounce call: %d traverse_kernel "
-        "events on the device = %d launches counted %s (%d bounces "
-        "launched)" % (n_events, n_counted, p_counts, p_launched))
+        "and %d shade_kernel events on the device = the launches counted "
+        "%s (%d bounces launched); %d kernels in all, %.0f a bounce"
+        % (ev["traverse_kernel"], ev["shade_kernel"], p_counts, p_launched,
+           ev["all"], ev["all"] / p_launched))
     del r
     torch.cuda.empty_cache()
 
@@ -1470,6 +1530,160 @@ def phase11(np, torch, ops, dev, scenes, W, bounce_profile):
             "bit for bit, %.1f ms, under set_sync_debug_mode('error')"
             % (integrator, dt))
         del r, sr, whole, got
+        torch.cuda.empty_cache()
+    return rec
+
+
+P_SHADE = 1 << 20
+# FP32 operations of the diffuse draw (the concentric disk, the basis, the
+# sum and its normalization, the mask; sinf and cosf counted once each):
+# the fewest any branch but the null interface does, so a lower bound of
+# a lane's work
+SHADE_OPS_PER_LANE = 80
+FP32_OPS_PER_S = 67e12     # H100 SXM, FP32 outside the tensor cores
+
+
+def shade_inputs():
+    """tests/torch_shade_inputs.py beside this script: the shade kernel's
+    inputs of every material branch, from a numpy seed (no jax)."""
+    d = os.path.join(HERE, "tests")
+    if d not in sys.path:
+        sys.path.append(d)
+    import torch_shade_inputs
+    return torch_shade_inputs
+
+
+def shade_bits_differ(torch, got, want, surf):
+    """{output: lanes of surf where the two differ in any bit} and the
+    largest absolute difference of the float outputs there."""
+    names = ("rng", "next_dir", "mask_mul", "offset", "terminate",
+             "bounce_inc", "glass_refract", "ss_refract", "ss_normal")
+    pairs = list(zip(got[:6], want[:6])) + [
+        (got[6][k], want[6][k]) for k in names[6:]]
+    out, err = {}, 0.0
+    for name, (g, w) in zip(names, pairs):
+        gb, wb = g, w
+        if g.dtype == torch.float32:
+            gb, wb = g.view(torch.int32), w.view(torch.int32)
+            d = (g - w).abs()
+            if d.dim() == 2:
+                d = d.max(-1).values
+            if bool(surf.any()):
+                err = max(err, float(d[surf].max()))
+        differ = gb != wb
+        if differ.dim() == 2:
+            differ = differ.any(-1)
+        out[name] = int((differ & surf).sum())
+    return out, err
+
+
+def phase12(np, torch, dev, parts, W):
+    """Phase 12: the shade kernel (csrc/shade.cu) against its plain version
+    at P_SHADE lanes of every material, its times and bound, and the W x W
+    TestObj regen and bounce renders with the kernel against the same
+    renders with the plain shade. parts: the TestObj scene parts. Returns
+    the record."""
+    import dataclasses
+    from tpu_pathtracer_torch.ops import shade as shade_ops
+    from tpu_pathtracer_torch.scene import demo
+    from tpu_pathtracer_torch.tracer import wavefront
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.utils.timing import cuda_ms
+    rec = {}
+
+    # ---- 12a. kernel = plain version, bit for bit, on the surface lanes ----
+    inputs = shade_inputs()
+    scene, args, mat_id, surf = inputs.mixed_inputs(P_SHADE, 12, dev)
+    refl = args[5]["refltype"]
+    types = {int(t): int((refl == t).sum()) for t in range(8)}
+    assert all(types.values()), ("a refltype is missing", types)
+    want = shade_ops.shade_plain(scene, None, *args)
+    before = shade_ops.LAUNCHES["shade"]
+    got = shade_ops.shade(scene, None, *args, mat_id=mat_id)
+    torch.cuda.synchronize()
+    assert shade_ops.LAUNCHES["shade"] == before + 1
+    differ, err = shade_bits_differ(torch, got, want, surf)
+    assert not any(differ.values()), ("shade kernel != plain", differ)
+    # the bare launch (no wrapper checks or allocations) and the plain
+    # version in turns: plain, kernel, kernel, plain
+    fn = shade_ops.launch_fn(scene, *inputs.kernel_args(args, mat_id))
+    kernel_ms, plain_ms = [], []
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "kernel":
+            kernel_ms.append(cuda_ms(fn, 50))
+        else:
+            plain_ms.append(cuda_ms(
+                lambda: shade_ops.shade_plain(scene, None, *args), 5))
+    # the bytes this run's lanes need, by their branches (ops/shade.py:
+    # io_bytes)
+    n_bytes = shade_ops.io_bytes(args[5], got[5], scene["mat_table"].shape[0])
+    b_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    b_ops = SHADE_OPS_PER_LANE * (P_SHADE - types[6]) / FP32_OPS_PER_S * 1e3
+    bound = max(b_bytes, b_ops)
+    rec["kernel"] = {
+        "lanes": P_SHADE, "surface_lanes": int(surf.sum()),
+        "lanes_by_refltype": types, "differing_lanes": differ,
+        "max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "bytes": n_bytes, "bytes_per_lane": n_bytes / P_SHADE,
+        "bound_ms": bound,
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "bound_bytes_ms": b_bytes, "bound_ops_ms": b_ops,
+        "bound_share": bound / min(kernel_ms)}
+    log("  12a shade kernel at %d lanes (refltypes %s): = plain version bit "
+        "for bit on all %d surface lanes, every output; kernel %s ms, plain "
+        "%s ms, bound %.4f ms by bytes (%.1f MB, %.1f B a lane; ops %.4f "
+        "ms): kernel at %.1f%% of it"
+        % (P_SHADE, types, int(surf.sum()), ["%.4f" % x for x in kernel_ms],
+           ["%.2f" % x for x in plain_ms], b_bytes, n_bytes / 1e6,
+           n_bytes / P_SHADE, b_ops, 100 * rec["kernel"]["bound_share"]))
+    del scene, args, mat_id, surf, want, got, fn
+    torch.cuda.empty_cache()
+
+    # ---- 12b. W x W renders: the kernel against the plain shade ----
+    fb, mats, envmap, texture = parts
+    rc = demo.default_camera(W, W).build_render_camera()
+    rec["renders"] = {}
+    saved = wavefront.shade
+    for integrator in ("regen", "bounce"):
+        imgs, run = {}, {}
+        for mode in ("kernel", "plain"):
+            r = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                         height=W, device=dev)
+            r.settings = dataclasses.replace(r.settings,
+                                             integrator=integrator)
+            if mode == "plain":
+                wavefront.shade = inputs.plain_shade
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                r.render_frames(r.zeros_accum(), rc, 1, 2)     # captures
+                torch.cuda.synchronize()
+                zero_counts()
+                acc, ms = event_ms(torch, lambda: r.render_frames(
+                    r.zeros_accum(), rc, 1, 2))
+                counts = read_counts()
+            finally:
+                torch.use_deterministic_algorithms(False)
+                wavefront.shade = saved
+            imgs[mode] = acc
+            run[mode] = {"ms_per_frame": ms / 2,
+                         "shade_launches_per_frame": counts["shade"] / 2}
+            del r
+        assert run["kernel"]["shade_launches_per_frame"] > 0, integrator
+        assert run["plain"]["shade_launches_per_frame"] == 0, integrator
+        g = gate(np, imgs["kernel"].cpu().numpy() / 2,
+                 imgs["plain"].cpu().numpy() / 2,
+                 "%s kernel vs plain shade" % integrator)
+        bit_equal = torch.equal(imgs["kernel"], imgs["plain"])
+        assert bit_equal, (integrator, "shade kernel moved the image")
+        rec["renders"][integrator] = {"gate": g, "bit_equal": bit_equal,
+                                      **run}
+        log("  12b TestObj %s %dx%d x 2 spp, deterministic: kernel %.1f ms "
+            "a frame (%.1f shade launches), plain shade %.1f ms; %s; bit "
+            "for bit: %s" % (integrator, W, W,
+                             run["kernel"]["ms_per_frame"],
+                             run["kernel"]["shade_launches_per_frame"],
+                             run["plain"]["ms_per_frame"], g, bit_equal))
+        del imgs
         torch.cuda.empty_cache()
     return rec
 
@@ -1885,7 +2099,7 @@ def main():
     spp = 4
     main, _ = timed_frames(np, torch, ops, r, rc, spp, "main path")
     launches = main["launches"]
-    for k in ("traverse_closest", "traverse_anyhit"):
+    for k in ("traverse_closest", "traverse_anyhit", "shade"):
         assert launches[k] > 0, "main path never launched %s" % k
     report["main_path"] = main
 
@@ -2033,6 +2247,12 @@ def main():
         report["phase9"]["profiles"]["testobj_bounce"])
     report["phase11"]["s"] = time.time() - t0
 
+    # ---- 12. the shade kernel ----
+    t0 = time.time()
+    report["phase12"] = phase12(np, torch, dev, (fb, mats, envmap, texture),
+                                W)
+    report["phase12"]["s"] = time.time() - t0
+
     assert "jax" not in sys.modules, "the port imported jax"
     assert not [m for m in sys.modules if m == "tpu_pathtracer"
                 or m.startswith("tpu_pathtracer.")], \
@@ -2133,6 +2353,22 @@ def main():
             "max_abs_err": dm["max_abs_err"], "ms": min(dm["kernel_ms"]),
             "plain_ms": min(dm["plain_ms"]), "bound_ms": dm["bound_ms"],
             "bound_by": "bytes", "library_ms": dm["library_ms"]})
+    # the shade kernel: no TPU kernel behind it (the JAX function is one
+    # XLA fusion); launches on the main path (regen), the replayed bounce
+    # path (8a) and the viewer (9a)
+    sk = report["phase12"]["kernel"]
+    kernels.append({
+        "name": "shade", "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/shade.cu",
+        "replaces": "tpu_pathtracer/tracer/wavefront.py:476",
+        "launches": launches["shade"],
+        "launches_bounce": p8["testobj"]["bounce"]["launches"]["shade"],
+        "launches_viewer": viewer_runs["shade"],
+        "max_abs_err": sk["max_abs_err"], "ms": min(sk["kernel_ms"]),
+        "plain_ms": min(sk["plain_ms"]), "bound_ms": sk["bound_ms"],
+        "bound_by": sk["bound_by"], "library_ms": None})
+    assert kernels[-1]["launches_bounce"] > 0 and \
+        kernels[-1]["launches_viewer"] > 0, kernels[-1]
     report["kernels"] = kernels
     report["card"] = card
     report["total_s"] = time.time() - t_start

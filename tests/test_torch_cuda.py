@@ -1,5 +1,6 @@
 """The CUDA kernels (traversal, step-counting traversal, row gather and
-scatter) against their plain PyTorch versions, on the card, and the render
+scatter, the shade kernel) against their plain PyTorch versions, on the
+card, and the render
 paths that launch them (media, BSSRDF, bounce, chunks and shards, the regen
 orders, the dup_stage hook, the device tonemap and the viewer's session,
 the replayed regen and bounce frames against the eager ones).
@@ -15,7 +16,10 @@ The counting kernel's slot and t equal the non-counting kernel's bit for
 bit and its steps the plain version's on >= 0.999 of lanes; the row
 kernels equal their plain versions exactly (pure data movement). The
 `_exact` cases hold slot, t and steps to the plain version bit for bit on
-every lane.
+every lane. The shade kernel equals its plain version bit for bit in every
+output on every lane that is not a miss (a miss lane's NaN normal gives
+values no caller reads), and renders with it equal renders with the plain
+shade bit for bit under deterministic algorithms.
 """
 import functools
 
@@ -27,6 +31,8 @@ from tpu_pathtracer_torch.scene import demo
 from tpu_pathtracer_torch.tracer import traverse as trav
 from tpu_pathtracer_torch.ops import traverse_packet as ops
 from tpu_pathtracer_torch.ops import dma_rows
+from tpu_pathtracer_torch.ops import shade as shade_ops
+from torch_shade_inputs import mixed_inputs, kernel_args, plain_shade
 
 torch.set_num_threads(2)
 RAY_MIN, RAY_MAX = 1e-4, 1e20
@@ -877,3 +883,128 @@ def test_bounce_replays_make_no_synchronising_call(device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(acc).all() and float(acc.mean()) > 0
+
+
+# ---- the shade kernel (csrc/shade.cu) ----
+
+def _shade_outputs(out):
+    return list(out[:6]) + [out[6][k] for k in ("glass_refract", "ss_refract",
+                                                "ss_normal")]
+
+
+def _assert_shade_equal(got, want, surf):
+    """Every output bit for bit on the lanes in surf."""
+    names = ("rng", "next_dir", "mask_mul", "offset", "terminate",
+             "bounce_inc", "glass_refract", "ss_refract", "ss_normal")
+    for name, g, w in zip(names, _shade_outputs(got), _shade_outputs(want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        differ = g != w
+        if differ.dim() == 2:
+            differ = differ.any(-1)
+        assert not bool((differ & surf).any()), \
+            (name, int((differ & surf).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 31, 4096, 65536])
+def test_shade_kernel_matches_plain_on_card(device, n):
+    """The kernel = shade_plain on every surface lane, every output, with
+    every material branch present and NaN normals on the miss lanes."""
+    scene, args, mat_id, surf = mixed_inputs(n, 50 + n, device)
+    want = shade_ops.shade_plain(scene, None, *args)
+    before = shade_ops.LAUNCHES["shade"]
+    got = shade_ops.shade(scene, None, *args, mat_id=mat_id)
+    torch.cuda.synchronize()
+    assert shade_ops.LAUNCHES["shade"] == before + (1 if n else 0)
+    _assert_shade_equal(got, want, surf)
+
+
+@pytest.mark.cuda
+def test_shade_kernel_reads_strided_and_contiguous_columns(device):
+    """objcol as mat["objcol"] (a column view, rows 31 floats apart) and as
+    a contiguous copy, raydir as a column view of a wider table: the same
+    bits."""
+    scene, (rng, raydir, n, nl, into, mat, _), mat_id, surf = \
+        mixed_inputs(4096, 61, device)
+    wide = torch.cat([raydir, torch.zeros_like(raydir)], dim=1)[:, :3]
+    assert wide.stride(0) == 6
+    a = shade_ops.shade(scene, None, rng, wide, n, nl, into, mat,
+                        mat["objcol"], mat_id=mat_id)
+    b = shade_ops.shade(scene, None, rng, raydir, n, nl, into, mat,
+                        mat["objcol"].contiguous(), mat_id=mat_id)
+    torch.cuda.synchronize()
+    _assert_shade_equal(a, b, surf)
+    _assert_shade_equal(a, shade_ops.shade_plain(
+        scene, None, rng, raydir, n, nl, into, mat, mat["objcol"]), surf)
+
+
+@pytest.mark.cuda
+def test_shade_bare_launch_equals_the_wrapper_and_counts_nothing(device):
+    scene, args, mat_id, surf = mixed_inputs(4096, 62, device)
+    want = shade_ops.shade(scene, None, *args, mat_id=mat_id)
+    before = dict(shade_ops.LAUNCHES)
+    launch = shade_ops.launch_fn(scene, *kernel_args(args, mat_id))
+    for _ in range(2):
+        got = launch()
+        torch.cuda.synchronize()
+        _assert_shade_equal(got, want, torch.ones_like(surf))
+    assert shade_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_shade_refused_launch_raises(device, monkeypatch):
+    """A nonzero code from tpt_shade raises, and nothing is counted."""
+    scene, args, mat_id, _ = mixed_inputs(64, 63, device)
+    monkeypatch.setattr(shade_ops, "_kernel", lambda: (lambda *a: 7))
+    before = dict(shade_ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        shade_ops.shade(scene, None, *args, mat_id=mat_id)
+    assert shade_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_shade_kernel_needs_the_material_ids(device):
+    """The kernel reads the material from mat_id and the table: a call
+    on the card without mat_id, or with ids of another dtype, raises and
+    counts nothing."""
+    scene, args, mat_id, _ = mixed_inputs(64, 64, device)
+    before = dict(shade_ops.LAUNCHES)
+    with pytest.raises(ValueError, match="mat_id"):
+        shade_ops.shade(scene, None, *args)
+    with pytest.raises(ValueError, match="mat_id"):
+        shade_ops.shade(scene, None, *args, mat_id=mat_id.long())
+    assert shade_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["regen", "bounce"])
+def test_renders_with_the_shade_kernel_equal_the_plain_shade(
+        device, integrator, monkeypatch):
+    """A replayed render with the kernel (one launch a wave or a bounce)
+    equals the eager render with shade_plain bit for bit, under torch's
+    deterministic algorithms."""
+    import dataclasses
+    from tpu_pathtracer_torch.tracer import device_loop, wavefront
+    W = 64
+    rc = demo.default_camera(W, W).build_render_camera()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        imgs = {}
+        for mode in ("kernel", "plain"):
+            r = _regen_renderer(device, W)
+            r.settings = dataclasses.replace(r.settings,
+                                             integrator=integrator)
+            if mode == "plain":
+                monkeypatch.setattr(wavefront, "shade", plain_shade)
+                with device_loop.no_graphs():
+                    imgs[mode] = r.render_frames(r.zeros_accum(), rc, 1, 2)
+            else:
+                r.render_frames(r.zeros_accum(), rc, 1, 2)   # captures
+                before = shade_ops.LAUNCHES["shade"]
+                imgs[mode] = r.render_frames(r.zeros_accum(), rc, 1, 2)
+                assert shade_ops.LAUNCHES["shade"] > before
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(imgs["kernel"], imgs["plain"])

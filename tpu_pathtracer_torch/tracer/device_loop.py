@@ -65,23 +65,28 @@ def graphs_enabled(device):
     return torch.device(device).type == "cuda" and not _NO_GRAPHS[0]
 
 
+def _count_tables():
+    """The launch counts a step's kernels add to: the traversal's
+    (ops.traverse_packet.LAUNCHES, FORM_LAUNCHES) and the shade kernel's
+    (ops.shade.LAUNCHES)."""
+    from ..ops import shade, traverse_packet as tp
+    return tp.LAUNCHES, tp.FORM_LAUNCHES, shade.LAUNCHES
+
+
 def launch_counts():
-    from ..ops import traverse_packet as tp
-    return {**tp.LAUNCHES, **tp.FORM_LAUNCHES}
+    return {k: v for table in _count_tables() for k, v in table.items()}
 
 
 def set_launch_counts(counts):
-    from ..ops import traverse_packet as tp
-    for table in (tp.LAUNCHES, tp.FORM_LAUNCHES):
+    for table in _count_tables():
         for k in table:
             table[k] = counts[k]
 
 
 def add_launches(launches):
-    """Add the per-step launches recorded at a capture to the traversal's
-    launch counts (ops.traverse_packet.LAUNCHES and FORM_LAUNCHES)."""
-    from ..ops import traverse_packet as tp
-    for table in (tp.LAUNCHES, tp.FORM_LAUNCHES):
+    """Add the per-step launches recorded at a capture to the launch
+    counts (_count_tables)."""
+    for table in _count_tables():
         for k in table:
             table[k] += launches.get(k, 0)
 
@@ -89,7 +94,7 @@ def add_launches(launches):
 def capture(step, device):
     """Run step() WARMUP_STEPS times on a side stream, then capture one
     call of it as a CUDA graph. Returns (graph, launches): the kernel
-    launches that one call counts (ops.traverse_packet's counts), which
+    launches that one call counts (launch_counts()), which
     every replay adds again. The warm-up and the capture are set-up: the
     launch counts are left as they were before them."""
     saved = launch_counts()

@@ -19,22 +19,16 @@ import numpy as np
 import torch
 
 from ..core.vecmath import (
-    PI, INV_PI, RAY_MIN, RAY_MAX, normalize, reflect, barycentric, dot,
+    PI, INV_PI, RAY_MIN, RAY_MAX, normalize, barycentric, dot,
 )
 from ..core.rng import RaySampler, wang_hash
-from ..scene.config import (
-    MAT_EMIT, MAT_DIFF, MAT_GLASS, MAT_REFL, MAT_DIFF_REFL, MAT_FRESNEL,
-    MAT_NULL, MAT_SUBSURFACE,
-)
+from ..scene.config import MAT_DIFF
 from ..materials.fresnel import fresnel_dielectric, fresnel_moment_1
 from ..scene.texture import (
     sample_texture_quad, sample_envmap_quad, sample_envmap_quad_pdf,
     _uv_from_dir, _corner_pdf, _bilinear_rows,
 )
-from ..materials.bsdf import (
-    lambertian_sample, specular_glass_sample, ggx_reflection_sample,
-    rough_glass_sample, microfacet_interface_sample, fresnel_blend_sample,
-)
+from ..ops.shade import shade
 from . import device_loop
 from .envsample import power_heuristic, sample_env
 from .traverse import intersect_scene
@@ -291,103 +285,6 @@ def env_tex_merged(scene, settings: RenderSettings, raydir, bsdf_pdf,
     return env_L, _bilinear_rows(q, fxt, fyt)
 
 
-def shade(scene, settings, rng, raydir, n, nl, into, mat, objcol):
-    """Evaluate every material branch and select by refltype; six RNG draws
-    per lane, in the JAX package's order.
-
-    Returns (rng, next_dir, mask_mul [N,3], offset_steps [N], terminate [N],
-    bounce_inc [N], aux)."""
-    N = raydir.shape[0]
-    rng, (u1, u2, u3, u4, u5, u6) = RaySampler.next_n(rng, 6)
-    refl_t = mat["refltype"]
-    one3 = torch.ones((N, 3), dtype=torch.float32, device=raydir.device)
-
-    # MAT_DIFF
-    d_dir = lambertian_sample(u1, u2, nl)
-    d_mul = mat["kd"][:, None] * objcol
-    # MAT_REFL; a mirror offsets twice (reference quirk kept)
-    mirror = mat["alphax"] == 0.0
-    mir_dir = normalize(reflect(raydir, n))
-    g_dir, g_beta = ggx_reflection_sample(
-        u1, u2, raydir, nl, mat["tangent"], mat["F0"],
-        mat["alphax"], mat["alphay"])
-    r_dir = torch.where(mirror[:, None], mir_dir, g_dir)
-    r_mul = torch.where(mirror[:, None],
-                        mat["ks"][:, None] * objcol,
-                        mat["ks"][:, None] * g_beta * objcol)
-    r_off = torch.where(mirror, 2.0, 1.0)
-    # MAT_DIFF_REFL
-    dr_spec = u5 < mat["ks"] / torch.clamp_min(mat["ks"] + mat["kd"], 1e-7)
-    dr_dir = torch.where(dr_spec[:, None], g_dir, d_dir)
-    dr_mul = torch.where(dr_spec[:, None], g_beta, objcol)
-    # MAT_FRESNEL
-    f_dir, f_beta = fresnel_blend_sample(
-        u1, u2, u3, raydir, nl, mat["kd"][:, None] * objcol, mat["F0"],
-        mat["alphax"])
-    # MAT_GLASS
-    sg_dir, sg_refl = specular_glass_sample(u1, into, raydir, nl,
-                                            mat["etaT"])
-    rg_dir, rg_beta, rg_refl = rough_glass_sample(
-        u1, u2, into, raydir, nl, mat["etaT"], mat["alphax"])
-    smooth = mat["alphax"] == 0.0
-    gl_refl = torch.where(smooth, sg_refl, rg_refl)
-    gl_dir = torch.where(smooth[:, None], sg_dir, rg_dir)
-    eta2 = mat["etaT"] * mat["etaT"]
-    rg_mul = rg_beta[:, None] * objcol \
-        * torch.where((~rg_refl & ~into)[:, None], eta2[:, None], 1.0)
-    gl_mul = torch.where(smooth[:, None], one3, rg_mul)
-    gl_off = torch.where(gl_refl, 1.0, -1.0)
-    # MAT_SUBSURFACE entry interface
-    ss_m, ss_rdir, ss_beta, ss_refl = microfacet_interface_sample(
-        u1, u2, into, raydir, nl, mat["etaT"], mat["alphax"])
-    ss_refl_mul = ss_beta[:, None] * mat["ks"][:, None] * objcol
-
-    def sel(t):
-        return (refl_t == t)[:, None]
-
-    next_dir = d_dir
-    next_dir = torch.where(sel(MAT_REFL), r_dir, next_dir)
-    next_dir = torch.where(sel(MAT_DIFF_REFL), dr_dir, next_dir)
-    next_dir = torch.where(sel(MAT_FRESNEL), f_dir, next_dir)
-    next_dir = torch.where(sel(MAT_GLASS), gl_dir, next_dir)
-    next_dir = torch.where(sel(MAT_SUBSURFACE), ss_rdir, next_dir)
-    next_dir = torch.where(sel(MAT_NULL), raydir, next_dir)
-
-    mask_mul = d_mul
-    mask_mul = torch.where(sel(MAT_REFL), r_mul, mask_mul)
-    mask_mul = torch.where(sel(MAT_DIFF_REFL), dr_mul, mask_mul)
-    mask_mul = torch.where(sel(MAT_FRESNEL), f_beta, mask_mul)
-    mask_mul = torch.where(sel(MAT_GLASS), gl_mul, mask_mul)
-    mask_mul = torch.where(sel(MAT_SUBSURFACE), ss_refl_mul, mask_mul)
-    mask_mul = torch.where(sel(MAT_NULL), one3, mask_mul)
-
-    offset = torch.ones((N,), dtype=torch.float32, device=raydir.device)
-    offset = torch.where(refl_t == MAT_REFL, r_off, offset)
-    offset = torch.where(refl_t == MAT_DIFF_REFL, 0.0, offset)
-    offset = torch.where(refl_t == MAT_FRESNEL, 0.0, offset)
-    offset = torch.where(refl_t == MAT_GLASS, gl_off, offset)
-    offset = torch.where(refl_t == MAT_SUBSURFACE, 1.0, offset)
-    offset = torch.where(refl_t == MAT_NULL, -1.0, offset)
-
-    terminate = refl_t == MAT_EMIT
-    is_specular_event = (
-        (refl_t == MAT_REFL)
-        | ((refl_t == MAT_DIFF_REFL) & dr_spec)
-        | (refl_t == MAT_FRESNEL)
-        | (refl_t == MAT_GLASS)
-        | ((refl_t == MAT_SUBSURFACE) & ss_refl))
-    bounce_inc = is_specular_event.to(torch.int32)
-
-    aux = {
-        "glass_refract": (refl_t == MAT_GLASS) & ~gl_refl,
-        "ss_refract": (refl_t == MAT_SUBSURFACE) & ~ss_refl,
-        "ss_normal": ss_m,
-        "u": (u1, u2, u3, u4, u5, u6),
-    }
-    return rng, next_dir, mask_mul, offset, terminate, bounce_inc, aux
-
-
-
 def plus_zero_times(x, dup):
     """x + 0 * dup with x's bits, the consumer of a dup_stage duplicate.
     A float32 tensor is added as int32 bits: the JAX hook's x + 0.0 * dup
@@ -447,13 +344,14 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
 
     rng_in = rng
     rng, next_dir, mask_mul, offset, term, binc, aux = shade(
-        scene, settings, rng, raydir, n, nl, into, mat, objcol)
+        scene, settings, rng, raydir, n, nl, into, mat, objcol,
+        mat_id=mat_id)
     if dup_stage == "shade":
         # the same pre-draw rng state; the perturbed direction makes the
         # duplicate a distinct call
         _, nd2, mm2, of2, _, _, _ = shade(
             scene, settings, rng_in, raydir * 1.0000001, n, nl, into, mat,
-            objcol)
+            objcol, mat_id=mat_id)
         next_dir = plus_zero_times(next_dir, nd2)
         mask_mul = plus_zero_times(mask_mul, mm2)
         offset = plus_zero_times(offset, of2)

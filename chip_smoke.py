@@ -147,12 +147,28 @@ back to the CPU. Phases, each fatal on failure:
    bound; (12b) the TestObj regen and bounce renders at 1024x1024, 2 spp,
    replayed with the kernel and with the plain shade, under torch's
    deterministic algorithms: the gate statistics, and bit for bit;
+13. the surface fetch kernels (csrc/fetch.cu: fetch_attributes, one launch
+   a regen wave and a bounce; csrc/envtex.cu: env_tex_merged, one launch a
+   regen wave, and its texture-only form texture_radiance, one launch a
+   bounce and a BSSRDF probe; their launches are counted on every path
+   above, and 10e / 11c hold them to the profiled events): (13a) at
+   P = 1,048,576 lanes with ~40% miss lanes (slot -1, non-finite hit
+   points and uv), every material id and bsdf_pdf < 0 on ~30% of lanes,
+   each kernel equals its plain version (ops/surface_fetch.py) in every
+   output on every lane, bit for bit (a NaN equal to a NaN; lanes whose
+   NaN bits differ are reported); the bare launch and the plain version
+   timed in turns beside the byte bound; (13b) the TestObj regen and
+   bounce renders at 1024x1024 and the sss regen render at 256x256, 2
+   spp, replayed with the kernels and with the plain versions, under
+   torch's deterministic algorithms: the gate statistics, and bit for
+   bit;
 6. print the kernels line (rows 1-3 also carry their launches on the
    replayed bounce path, "launches_bounce", rows 1-2 on the viewer path,
-   "launches_viewer"; the shade kernel both), the card line, and the
-   result line (last).
+   "launches_viewer"; the shade kernel and the surface fetches both, the
+   fetches also on the sss regen path, "launches_sss_regen"), the card
+   line, and the result line (last).
 
-Phases 4-11 replay captured steps (the default on a CUDA device): each
+Phases 4-13 replay captured steps (the default on a CUDA device): each
 renderer's first call of a key captures, and the timed calls come after a
 warm-up call of the same key.
 
@@ -165,12 +181,16 @@ row kernels are bound by bytes (tools/probe_dma.py: bound_bytes), and so
 is the shade kernel: the bytes this run's lanes need (ops/shade.py:
 io_bytes, 79-115 a lane by the lane's branch, and the material table
 once) over 3.35 TB/s, against at least SHADE_OPS_PER_LANE FP32 operations
-a lane that is not a null interface over 67 TFLOP/s.
+a lane that is not a null interface over 67 TFLOP/s. The surface fetches
+too: each lane's inputs and outputs and each table row the lanes read,
+once (ops/surface_fetch.py: io_bytes, rows_read), against
+FETCH_OPS_PER_LANE FP32 operations a lane.
 
 A `details` line carries every measurement as JSON. The BVH is built by
 the port's own accel/ (numpy + C++ built with g++; the line "BVH:" says
 which builder ran); nothing here imports jax or the JAX package.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -628,7 +648,10 @@ def measure_ab(root):
     dup_stage prices of the TestObj regen frame (profile_frame.price_stages
     of that checkout's stages, frames (1, 3), as phase 9f), and, where the
     checkout has the shade kernel (ops/shade.py), its bare launch and the
-    plain shade at P_SHADE lanes of every material. Returns the record."""
+    plain shade at P_SHADE lanes of every material, and where it has the
+    surface fetch kernels (ops/surface_fetch.py), their bare launches and
+    plain versions at P_FETCH lanes (phase 13a's inputs). Returns the
+    record."""
     import dataclasses
     import statistics
     import numpy as np
@@ -699,7 +722,7 @@ def measure_ab(root):
     rec["shade_kernel"] = None
     if os.path.exists(os.path.join(rec["package"], "ops", "shade.py")):
         from tpu_pathtracer_torch.ops import shade as shade_ops
-        inputs = shade_inputs()
+        inputs = test_inputs("shade")
         s_scene, s_args, s_id, _ = inputs.mixed_inputs(P_SHADE, 12, dev)
         fn = shade_ops.launch_fn(s_scene, *inputs.kernel_args(s_args, s_id))
         rec["shade_kernel"] = {
@@ -708,6 +731,21 @@ def measure_ab(root):
             "plain_ms": [cuda_ms(lambda: shade_ops.shade_plain(
                 s_scene, None, *s_args), 5) for _ in range(2)]}
         del s_scene, s_args, s_id, fn
+        torch.cuda.empty_cache()
+    rec["fetch_kernels"] = None
+    if os.path.exists(os.path.join(rec["package"], "ops",
+                                   "surface_fetch.py")):
+        from tpu_pathtracer_torch.ops import surface_fetch as sf
+        inputs = test_inputs("fetch")
+        rec["fetch_kernels"] = {"lanes": P_FETCH}
+        for name in FETCH_KERNELS:
+            args = inputs.kernel_inputs(name, r.scene, P_FETCH, 1, dev)
+            fn = sf.launch_fn(name, r.scene, *args)
+            rec["fetch_kernels"][name] = {
+                "kernel_ms": [cuda_ms(fn, 50), cuda_ms(fn, 50)],
+                "plain_ms": [cuda_ms(lambda: inputs.run_plain(
+                    name, r.scene, *args), 5) for _ in range(2)]}
+            del args, fn
         torch.cuda.empty_cache()
     o, d = camera_rays(W, dev)
     half = torch.from_numpy(
@@ -736,9 +774,15 @@ def measure_ab(root):
     return rec
 
 
+FETCH_KERNELS = {"fetch_attributes": "fetch_attributes_kernel",
+                 "env_tex_merged": "env_tex_merged_kernel",
+                 "texture_radiance": "texture_radiance_kernel"}
+
+
 def kernel_events(prof):
     """Device kernel events of a finished torch.profiler session, from its
-    chrome trace: {"all", "traverse_kernel", "shade_kernel"} counts."""
+    chrome trace: {"all", "traverse_kernel", "shade_kernel"} and the
+    surface fetches' kernels (FETCH_KERNELS) counts."""
     import tempfile
     from tpu_pathtracer_torch.utils.profiling import load_events
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -747,8 +791,9 @@ def kernel_events(prof):
         names = [e.get("name", "") for e in load_events(path)
                  if e.get("cat") == "kernel"]
     return {"all": len(names),
-            "traverse_kernel": sum("traverse_kernel" in n for n in names),
-            "shade_kernel": sum("shade_kernel" in n for n in names)}
+            **{k: sum(k in n for n in names) for k in (
+                "traverse_kernel", "shade_kernel",
+                *FETCH_KERNELS.values())}}
 
 
 def event_ms(torch, fn):
@@ -798,7 +843,8 @@ def phase8(np, torch, ops, dev, fb, mats, envmap, texture, sss_parts, rc,
     bounce_s = dataclasses.replace(regen_s, integrator="bounce")
     r.settings = bounce_s
     b_rec, b_img = timed_frames(np, torch, ops, r, rc, 2, "8a bounce")
-    for k in ("traverse_closest", "traverse_anyhit", "shade"):
+    for k in ("traverse_closest", "traverse_anyhit", "shade",
+              "fetch_attributes", "texture_radiance"):
         assert b_rec["launches"][k] > 0, "bounce never launched %s" % k
     r.settings = regen_s
     g_rec, g_img = timed_frames(np, torch, ops, r, rc, 2, "8a regen")
@@ -990,7 +1036,8 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
             clock[0] += dt
         viewer_launches = read_counts()
         assert sess.step(["q"]) is None
-        for k in ("traverse_closest", "traverse_anyhit", "shade"):
+        for k in ("traverse_closest", "traverse_anyhit", "shade",
+                  "fetch_attributes", "env_tex_merged"):
             assert viewer_launches[k] > 0, "the viewer never launched " + k
         assert sess.kind == "full" and sess.frame == 4 * batch, sess.frame
         assert len(times["preview"]) == len(interactive.KEYS) + len(
@@ -1240,18 +1287,26 @@ def phase10(np, torch, ops, dev, scenes, W):
     assert ev["shade_kernel"] == p_counts.get("shade", 0) > 0, \
         (ev, p_counts)
     waves_run = sum(by_width.values())
+    # the surface fetches: one fetch_attributes and one env_tex_merged
+    # launch a wave, no texture_radiance (the merged gather gives it)
+    fetch_ev = {name: ev[kern] for name, kern in FETCH_KERNELS.items()}
+    assert fetch_ev == {name: p_counts.get(name, 0)
+                        for name in FETCH_KERNELS} == {
+        "fetch_attributes": waves_run, "env_tex_merged": waves_run,
+        "texture_radiance": 0}, (fetch_ev, p_counts, by_width)
     rec["profiled_launches"] = {
         "traverse_kernel_events": ev["traverse_kernel"],
         "shade_kernel_events": ev["shade_kernel"],
+        "fetch_kernel_events": fetch_ev,
         "kernel_events": ev["all"], "counted": p_counts,
         "waves_by_width": by_width,
         "kernels_per_wave": ev["all"] / waves_run}
-    log("  10e a profiled replayed 1-spp call: %d traverse_kernel and %d "
-        "shade_kernel events on the device = the launches counted %s "
-        "(waves by width %s, the one past the end included); %d kernels "
-        "in all, %.0f a wave" % (ev["traverse_kernel"], ev["shade_kernel"],
-                                 p_counts, by_width, ev["all"],
-                                 ev["all"] / waves_run))
+    log("  10e a profiled replayed 1-spp call: %d traverse_kernel, %d "
+        "shade_kernel and %s fetch events on the device = the launches "
+        "counted %s (waves by width %s, the one past the end included); "
+        "%d kernels in all, %.0f a wave"
+        % (ev["traverse_kernel"], ev["shade_kernel"], fetch_ev, p_counts,
+           by_width, ev["all"], ev["all"] / waves_run))
 
     # ---- 10c. times: replayed and eager in turns ----
     def marginal(rr, rcc):
@@ -1461,17 +1516,25 @@ def phase11(np, torch, ops, dev, scenes, W, bounce_profile):
     assert ev["traverse_kernel"] == n_counted > 0, (ev, p_counts)
     assert ev["shade_kernel"] == p_counts.get("shade", 0) == p_launched, \
         (ev, p_counts, p_launched)
+    # one fetch_attributes and one texture_radiance launch a bounce; the
+    # env miss of frame_end is the plain env_miss_weighted
+    fetch_ev = {name: ev[kern] for name, kern in FETCH_KERNELS.items()}
+    assert fetch_ev == {name: p_counts.get(name, 0)
+                        for name in FETCH_KERNELS} == {
+        "fetch_attributes": p_launched, "env_tex_merged": 0,
+        "texture_radiance": p_launched}, (fetch_ev, p_counts, p_launched)
     rec["profiled_launches"] = {
         "traverse_kernel_events": ev["traverse_kernel"],
         "shade_kernel_events": ev["shade_kernel"],
+        "fetch_kernel_events": fetch_ev,
         "kernel_events": ev["all"], "counted": p_counts,
         "bounces_launched": p_launched,
         "kernels_per_bounce": ev["all"] / p_launched}
-    log("  11c a profiled replayed 1-spp bounce call: %d traverse_kernel "
-        "and %d shade_kernel events on the device = the launches counted "
-        "%s (%d bounces launched); %d kernels in all, %.0f a bounce"
-        % (ev["traverse_kernel"], ev["shade_kernel"], p_counts, p_launched,
-           ev["all"], ev["all"] / p_launched))
+    log("  11c a profiled replayed 1-spp bounce call: %d traverse_kernel, "
+        "%d shade_kernel and %s fetch events on the device = the launches "
+        "counted %s (%d bounces launched); %d kernels in all, %.0f a "
+        "bounce" % (ev["traverse_kernel"], ev["shade_kernel"], fetch_ev,
+                    p_counts, p_launched, ev["all"], ev["all"] / p_launched))
     del r
     torch.cuda.empty_cache()
 
@@ -1543,14 +1606,15 @@ SHADE_OPS_PER_LANE = 80
 FP32_OPS_PER_S = 67e12     # H100 SXM, FP32 outside the tensor cores
 
 
-def shade_inputs():
-    """tests/torch_shade_inputs.py beside this script: the shade kernel's
-    inputs of every material branch, from a numpy seed (no jax)."""
+def test_inputs(name):
+    """tests/torch_<name>_inputs.py beside this script (no jax): the shade
+    kernel's inputs of every material branch ("shade") or the surface
+    fetches' ("fetch"), from a numpy seed."""
+    import importlib
     d = os.path.join(HERE, "tests")
     if d not in sys.path:
         sys.path.append(d)
-    import torch_shade_inputs
-    return torch_shade_inputs
+    return importlib.import_module("torch_%s_inputs" % name)
 
 
 def shade_bits_differ(torch, got, want, surf):
@@ -1592,7 +1656,7 @@ def phase12(np, torch, dev, parts, W):
     rec = {}
 
     # ---- 12a. kernel = plain version, bit for bit, on the surface lanes ----
-    inputs = shade_inputs()
+    inputs = test_inputs("shade")
     scene, args, mat_id, surf = inputs.mixed_inputs(P_SHADE, 12, dev)
     refl = args[5]["refltype"]
     types = {int(t): int((refl == t).sum()) for t in range(8)}
@@ -1683,6 +1747,191 @@ def phase12(np, torch, dev, parts, W):
                              run["kernel"]["ms_per_frame"],
                              run["kernel"]["shade_launches_per_frame"],
                              run["plain"]["ms_per_frame"], g, bit_equal))
+        del imgs
+        torch.cuda.empty_cache()
+    return rec
+
+
+P_FETCH = 1 << 20
+# FP32 operations a lane of each surface fetch does at least (the
+# barycentric and the interpolations; the lat-long mapping, the MIS weight
+# and the two bilinear blends, atan2f / acosf / sqrtf counted once each;
+# one bilinear blend): a lower bound of a lane's work
+FETCH_OPS_PER_LANE = {"fetch_attributes": 72, "env_tex_merged": 100,
+                      "texture_radiance": 45}
+SSS_FETCH_SIZE = 256       # phase 13b's sss images
+
+
+@contextlib.contextmanager
+def swapped_fetches(plain):
+    """With plain=True, tracer.wavefront's (and tracer.regen's)
+    fetch_attributes, env_tex_merged and texture_radiance are the plain
+    versions inside the block (bssrdf_shade imports them from wavefront at
+    each call)."""
+    from tpu_pathtracer_torch.tracer import regen, wavefront
+    saved = [(m, k, getattr(m, k)) for m in (wavefront, regen)
+             for k in FETCH_KERNELS if hasattr(m, k)]
+    try:
+        if plain:
+            inputs = test_inputs("fetch")
+            for m, k, _ in saved:
+                setattr(m, k, inputs.plain_fetch(k))
+        yield
+    finally:
+        for m, k, fn in saved:
+            setattr(m, k, fn)
+
+
+def phase13(np, torch, dev, parts, sss_parts, W):
+    """Phase 13: the surface fetch kernels (csrc/fetch.cu, csrc/envtex.cu)
+    against their plain versions at P_FETCH lanes, their times and bounds,
+    and the W x W TestObj regen and bounce renders and the sss regen render
+    with the kernels against the same renders with the plain versions.
+    parts / sss_parts: the TestObj and sss scene parts. Returns the
+    record."""
+    import dataclasses
+    from tpu_pathtracer_torch.ops import surface_fetch as sf
+    from tpu_pathtracer_torch.scene import demo
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.utils.timing import cuda_ms
+    inputs = test_inputs("fetch")
+    rec = {"kernels": {}}
+
+    # ---- 13a. each kernel = its plain version at P_FETCH lanes ----
+    fb, mats, envmap, texture = parts
+    scene = Renderer(fb, mats, envmap=envmap, texture=texture, width=64,
+                     height=64, device=dev).scene
+    for name in FETCH_KERNELS:
+        args = inputs.kernel_inputs(name, scene, P_FETCH, 1, dev)
+        want = inputs.run_plain(name, scene, *args)
+        before = sf.LAUNCHES[name]
+        got = getattr(sf, name + "_cuda")(scene, *args)
+        torch.cuda.synchronize()
+        assert sf.LAUNCHES[name] == before + 1, name
+        got = got if isinstance(got, tuple) else (got,)
+        differ, raw, nan_lanes, err = [], [], [], 0.0
+        for g, w in zip(got, want):
+            differ.append(int(inputs.differing_lanes(g, w).sum()))
+            if g.dtype == torch.float32:
+                bits = g.view(torch.int32) != w.view(torch.int32)
+                raw.append(int((bits.any(-1) if bits.dim() == 2
+                                else bits).sum()))
+                nan = torch.isnan(g)
+                nan_lanes.append(int((nan.any(-1) if nan.dim() == 2
+                                      else nan).sum()))
+                ok = torch.isfinite(g) & torch.isfinite(w)
+                if bool(ok.any()):
+                    err = max(err, float((g - w).abs()[ok].max()))
+            else:
+                raw.append(differ[-1])
+                nan_lanes.append(0)
+        assert not any(differ), (name, "kernel != plain", differ)
+        # the bare launch and the plain version in turns: plain, kernel,
+        # kernel, plain
+        fn = sf.launch_fn(name, scene, *args)
+        kernel_ms, plain_ms = [], []
+        for which in ("plain", "kernel", "kernel", "plain"):
+            if which == "kernel":
+                kernel_ms.append(cuda_ms(fn, 50))
+            else:
+                plain_ms.append(cuda_ms(
+                    lambda: inputs.run_plain(name, scene, *args), 5))
+        rows = sf.rows_read(name, scene, *args)
+        n_rows = int(torch.unique(rows).numel())
+        n_bytes = sf.io_bytes(name, rows)
+        b_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        b_ops = FETCH_OPS_PER_LANE[name] * P_FETCH / FP32_OPS_PER_S * 1e3
+        bound = max(b_bytes, b_ops)
+        row_per_lane = (sf.LANE_BYTES[name] + sf.ROW_BYTES[name]) * P_FETCH
+        k = {"lanes": P_FETCH, "differing_lanes": differ,
+             "raw_bit_differing_lanes": raw, "nan_lanes": nan_lanes,
+             "max_abs_err": err, "kernel_ms": kernel_ms,
+             "plain_ms": plain_ms, "bytes": n_bytes,
+             "bytes_per_lane": n_bytes / P_FETCH, "rows_read": n_rows,
+             "bound_ms": bound,
+             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+             "bound_bytes_ms": b_bytes, "bound_ops_ms": b_ops,
+             "bound_share": bound / min(kernel_ms),
+             "bound_row_per_lane_ms": row_per_lane / HBM_BYTES_PER_S * 1e3}
+        if name == "fetch_attributes":
+            slot = args[0]
+            ids = scene["tri_attr"][:, 24].contiguous().view(torch.int32)
+            k["miss_lanes"] = int((slot < 0).sum())
+            k["material_ids"] = sorted(set(got[2][slot >= 0].tolist()))
+            assert k["material_ids"] == sorted(set(ids.tolist()))
+            assert 0 < k["miss_lanes"] < P_FETCH
+        elif name == "env_tex_merged":
+            miss, uv = args[3], args[4]
+            k["miss_lanes"] = int(miss.sum())
+            k["nonfinite_uv_lanes"] = int((~torch.isfinite(uv).all(-1)
+                                           ).sum())
+            k["pdf_negative_lanes"] = int((args[1] < 0).sum())
+            assert k["nonfinite_uv_lanes"] > 0 and \
+                k["pdf_negative_lanes"] > 0
+        rec["kernels"][name] = k
+        log("  13a %s kernel at %d lanes: = plain version on every lane, "
+            "every output (lanes differing in any bit: %s, NaN lanes %s); "
+            "kernel %s ms, plain %s ms, bound %.4f ms by %s (%.1f B a lane, "
+            "%d rows read once; a row a lane: %.4f ms): kernel at %.1f%% of "
+            "it" % (name, P_FETCH, raw, nan_lanes,
+                    ["%.4f" % x for x in kernel_ms],
+                    ["%.3f" % x for x in plain_ms], bound, k["bound_by"],
+                    n_bytes / P_FETCH, n_rows, k["bound_row_per_lane_ms"],
+                    100 * k["bound_share"]))
+        del args, want, got, fn, rows
+    del scene
+    torch.cuda.empty_cache()
+
+    # ---- 13b. renders: the kernels against the plain versions ----
+    rec["renders"] = {}
+    for tag, rparts, integrator, size in (
+            ("testobj_regen", parts, "regen", W),
+            ("testobj_bounce", parts, "bounce", W),
+            ("sss_regen", sss_parts, "regen", SSS_FETCH_SIZE)):
+        rc = demo.default_camera(size, size).build_render_camera()
+        imgs, run = {}, {}
+        for mode in ("kernel", "plain"):
+            r = Renderer(rparts[0], rparts[1], envmap=rparts[2],
+                         texture=rparts[3], width=size, height=size,
+                         device=dev)
+            r.settings = dataclasses.replace(r.settings,
+                                             integrator=integrator)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with swapped_fetches(mode == "plain"):
+                    r.render_frames(r.zeros_accum(), rc, 1, 2)  # captures
+                    torch.cuda.synchronize()
+                    zero_counts()
+                    acc, ms = event_ms(torch, lambda: r.render_frames(
+                        r.zeros_accum(), rc, 1, 2))
+                    counts = read_counts()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            imgs[mode] = acc
+            run[mode] = {"ms_per_frame": ms / 2, "launches_per_frame": {
+                k: counts[k] / 2 for k in FETCH_KERNELS}}
+            del r
+        want_kernels = {"testobj_regen": ("fetch_attributes",
+                                          "env_tex_merged"),
+                        "testobj_bounce": ("fetch_attributes",
+                                           "texture_radiance"),
+                        "sss_regen": tuple(FETCH_KERNELS)}[tag]
+        for k in FETCH_KERNELS:
+            assert (run["kernel"]["launches_per_frame"][k] > 0) == \
+                (k in want_kernels), (tag, k, run["kernel"])
+            assert run["plain"]["launches_per_frame"][k] == 0, (tag, k)
+        g = gate(np, imgs["kernel"].cpu().numpy() / 2,
+                 imgs["plain"].cpu().numpy() / 2,
+                 "%s kernels vs plain fetches" % tag)
+        bit_equal = torch.equal(imgs["kernel"], imgs["plain"])
+        assert bit_equal, (tag, "the fetch kernels moved the image")
+        rec["renders"][tag] = {"size": size, "gate": g,
+                               "bit_equal": bit_equal, **run}
+        log("  13b %s %dx%d x 2 spp, deterministic: kernels %.1f ms a frame "
+            "(launches a frame %s), plain versions %.1f ms; %s; bit for "
+            "bit: %s" % (tag, size, size, run["kernel"]["ms_per_frame"],
+                         run["kernel"]["launches_per_frame"],
+                         run["plain"]["ms_per_frame"], g, bit_equal))
         del imgs
         torch.cuda.empty_cache()
     return rec
@@ -2099,7 +2348,8 @@ def main():
     spp = 4
     main, _ = timed_frames(np, torch, ops, r, rc, spp, "main path")
     launches = main["launches"]
-    for k in ("traverse_closest", "traverse_anyhit", "shade"):
+    for k in ("traverse_closest", "traverse_anyhit", "shade",
+              "fetch_attributes", "env_tex_merged"):
         assert launches[k] > 0, "main path never launched %s" % k
     report["main_path"] = main
 
@@ -2253,6 +2503,12 @@ def main():
                                 W)
     report["phase12"]["s"] = time.time() - t0
 
+    # ---- 13. the surface fetch kernels ----
+    t0 = time.time()
+    report["phase13"] = phase13(np, torch, dev, (fb, mats, envmap, texture),
+                                big_scenes["organic_sss"], W)
+    report["phase13"]["s"] = time.time() - t0
+
     assert "jax" not in sys.modules, "the port imported jax"
     assert not [m for m in sys.modules if m == "tpu_pathtracer"
                 or m.startswith("tpu_pathtracer.")], \
@@ -2369,6 +2625,38 @@ def main():
         "bound_by": sk["bound_by"], "library_ms": None})
     assert kernels[-1]["launches_bounce"] > 0 and \
         kernels[-1]["launches_viewer"] > 0, kernels[-1]
+    # the surface fetches: no TPU kernel behind them (XLA fusions of the
+    # JAX functions); fetch_attributes and env_tex_merged run on the main
+    # path (a launch a wave), texture_radiance on the bounce path (a launch
+    # a bounce, 8a) and in the BSSRDF probes (the sss frames of phase 7)
+    b_launch = p8["testobj"]["bounce"]["launches"]
+    sss_launch = frames["organic_sss"]["auto"]["launches"]
+    for name, source, rep in (
+            ("fetch_attributes", "fetch.cu",
+             "tpu_pathtracer/tracer/wavefront.py:294"),
+            ("env_tex_merged", "envtex.cu",
+             "tpu_pathtracer/tracer/wavefront.py:412"),
+            ("texture_radiance", "envtex.cu",
+             "tpu_pathtracer/tracer/wavefront.py:388")):
+        fk = report["phase13"]["kernels"][name]
+        row = {"name": name, "route": "cuda",
+               "source": "tpu_pathtracer_torch/csrc/" + source,
+               "replaces": rep, "launches": launches[name],
+               "launches_bounce": b_launch[name],
+               "launches_viewer": viewer_runs[name],
+               "launches_sss_regen": sss_launch[name],
+               "max_abs_err": fk["max_abs_err"], "ms": min(fk["kernel_ms"]),
+               "plain_ms": min(fk["plain_ms"]), "bound_ms": fk["bound_ms"],
+               "bound_by": fk["bound_by"], "library_ms": None}
+        if name == "texture_radiance":
+            # not on the main path (the merged gather gives its texture):
+            # its path is the bounce step, driven in 8a with the counts set
+            # to 0 before and read after
+            assert launches[name] == 0, launches
+            row["launches_main_path"] = launches[name]
+            row["launches"] = row["launches_bounce"]
+        assert row["launches"] > 0 and row["launches_sss_regen"] > 0, row
+        kernels.append(row)
     report["kernels"] = kernels
     report["card"] = card
     report["total_s"] = time.time() - t_start

@@ -1,6 +1,6 @@
 """The CUDA kernels (traversal, step-counting traversal, row gather and
-scatter, the shade kernel) against their plain PyTorch versions, on the
-card, and the render
+scatter, the shade kernel, the surface fetches) against their plain
+PyTorch versions, on the card, and the render
 paths that launch them (media, BSSRDF, bounce, chunks and shards, the regen
 orders, the dup_stage hook, the device tonemap and the viewer's session,
 the replayed regen and bounce frames against the eager ones).
@@ -19,7 +19,9 @@ kernels equal their plain versions exactly (pure data movement). The
 every lane. The shade kernel equals its plain version bit for bit in every
 output on every lane that is not a miss (a miss lane's NaN normal gives
 values no caller reads), and renders with it equal renders with the plain
-shade bit for bit under deterministic algorithms.
+shade bit for bit under deterministic algorithms. The surface fetch
+kernels equal their plain versions bit for bit in every output on every
+lane, a NaN equal to a NaN, and so do renders with them.
 """
 import functools
 
@@ -32,7 +34,10 @@ from tpu_pathtracer_torch.tracer import traverse as trav
 from tpu_pathtracer_torch.ops import traverse_packet as ops
 from tpu_pathtracer_torch.ops import dma_rows
 from tpu_pathtracer_torch.ops import shade as shade_ops
+from tpu_pathtracer_torch.ops import surface_fetch
 from torch_shade_inputs import mixed_inputs, kernel_args, plain_shade
+from torch_fetch_inputs import (
+    kernel_inputs, run_plain, differing_lanes, plain_fetch)
 
 torch.set_num_threads(2)
 RAY_MIN, RAY_MAX = 1e-4, 1e20
@@ -1005,6 +1010,179 @@ def test_renders_with_the_shade_kernel_equal_the_plain_shade(
                 before = shade_ops.LAUNCHES["shade"]
                 imgs[mode] = r.render_frames(r.zeros_accum(), rc, 1, 2)
                 assert shade_ops.LAUNCHES["shade"] > before
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(imgs["kernel"], imgs["plain"])
+
+
+# ---- the surface fetches (csrc/fetch.cu, csrc/envtex.cu) ----
+
+FETCH_NAMES = ("fetch_attributes", "env_tex_merged", "texture_radiance")
+
+
+@functools.lru_cache(maxsize=None)
+def _fetch_scene(which):
+    """The Renderer's scene tables (tri_attr, envtex_quad, texture_quad) of
+    TestObj or a small large_scene on the card."""
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    parts = demo.testobj_scene(cache_dir=None) if which == "testobj" else \
+        demo.large_scene(cache_dir=None, n_lat=40, n_lon=80, ground_div=12)
+    fb, mats, envmap, texture = parts
+    return Renderer(fb, mats, envmap=envmap, texture=texture, width=8,
+                    height=8, device=torch.device("cuda")).scene
+
+
+def _fetch_cuda(name, scene, *args):
+    out = getattr(surface_fetch, name + "_cuda")(scene, *args)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _assert_fetch_equal(got, want):
+    """Every output bit for bit on every lane, a NaN equal to any NaN."""
+    assert len(got) == len(want)
+    for k, (g, w) in enumerate(zip(got, want)):
+        bad = differing_lanes(g, w)
+        assert not bool(bad.any()), (k, int(bad.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["testobj", "large"])
+@pytest.mark.parametrize("n", [0, 1, 31, 397, 4096])
+@pytest.mark.parametrize("name", FETCH_NAMES)
+def test_fetch_kernels_match_plain_on_card(device, name, n, table):
+    """Each kernel = its plain version bit for bit in every output on every
+    lane, with miss lanes (slot -1, non-finite hit points and uv), every
+    material id of the table and bsdf_pdf < 0 lanes; one launch a call."""
+    scene = _fetch_scene(table)
+    args = kernel_inputs(name, scene, n, 70 + n, device)
+    want = run_plain(name, scene, *args)
+    before = surface_fetch.LAUNCHES[name]
+    got = _fetch_cuda(name, scene, *args)
+    torch.cuda.synchronize()
+    assert surface_fetch.LAUNCHES[name] == before + (1 if n else 0)
+    _assert_fetch_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fetch_kernels_replay_in_a_cuda_graph(device):
+    """The three wrappers captured in one CUDA graph (one launch each, the
+    rotation read from device memory) and replayed on new inputs copied
+    into the captured ones: the plain versions' bits on the new inputs;
+    the counts move at the capture only."""
+    scene = _fetch_scene("testobj")
+    n = 4096
+    static = {k: kernel_inputs(k, scene, n, 80, device) for k in FETCH_NAMES}
+    for k in FETCH_NAMES:                                  # warm-up
+        _fetch_cuda(k, scene, *static[k])
+    torch.cuda.synchronize()
+    before = dict(surface_fetch.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = {k: _fetch_cuda(k, scene, *static[k]) for k in FETCH_NAMES}
+    assert all(surface_fetch.LAUNCHES[k] == before[k] + 1
+               for k in FETCH_NAMES)
+    for seed in (81, 82):
+        for k in FETCH_NAMES:
+            for dst, src in zip(static[k], kernel_inputs(k, scene, n, seed,
+                                                       device)):
+                dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        for k in FETCH_NAMES:
+            _assert_fetch_equal(outs[k], run_plain(k, scene, *static[k]))
+    assert all(surface_fetch.LAUNCHES[k] == before[k] + 1
+               for k in FETCH_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FETCH_NAMES)
+def test_fetch_bare_launch_equals_the_wrapper_and_counts_nothing(device,
+                                                                 name):
+    scene = _fetch_scene("testobj")
+    args = kernel_inputs(name, scene, 4096, 83, device)
+    want = _fetch_cuda(name, scene, *args)
+    before = dict(surface_fetch.LAUNCHES)
+    launch = surface_fetch.launch_fn(name, scene, *args)
+    for _ in range(2):
+        got = launch()
+        torch.cuda.synchronize()
+        _assert_fetch_equal(got if isinstance(got, tuple) else (got,), want)
+    assert surface_fetch.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_fetch_refused_calls_raise(device, monkeypatch):
+    """A wrong dtype, a tensor on another device, a misaligned table, a
+    host rotation: ValueError before any launch; a nonzero code from the C
+    entry: RuntimeError. Nothing is counted."""
+    scene = _fetch_scene("testobj")
+    slot, hp = kernel_inputs("fetch_attributes", scene, 64, 84, device)
+    raydir, pdf, rot, miss, uv = kernel_inputs("env_tex_merged", scene, 64, 84,
+                                             device)
+    before = dict(surface_fetch.LAUNCHES)
+    tri = scene["tri_attr"]
+    shifted = torch.empty(tri.numel() + 4, device=device)[1:1 + tri.numel()]
+    shifted = shifted.view(tri.shape).copy_(tri)
+    for call, match in (
+            (lambda: surface_fetch.fetch_attributes_cuda(scene, slot.long(),
+                                                         hp), "dtype"),
+            (lambda: surface_fetch.fetch_attributes_cuda(scene, slot,
+                                                         hp.cpu()), "cpu"),
+            (lambda: surface_fetch.fetch_attributes_cuda(
+                dict(scene, tri_attr=shifted), slot, hp), "aligned"),
+            (lambda: surface_fetch.env_tex_merged_cuda(
+                scene, raydir, pdf, rot.cpu(), miss, uv), "env_rotation"),
+            (lambda: surface_fetch.env_tex_merged_cuda(
+                scene, raydir, pdf, rot, miss.int(), uv), "dtype"),
+            (lambda: surface_fetch.texture_radiance_cuda(
+                scene, uv.double()), "dtype")):
+        with pytest.raises(ValueError, match=match):
+            call()
+    monkeypatch.setattr(surface_fetch, "_kernel", lambda name: (
+        lambda *a: 7))
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        surface_fetch.texture_radiance_cuda(scene, uv)
+    assert surface_fetch.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["regen", "bounce", "bssrdf"])
+def test_renders_with_the_fetch_kernels_equal_the_plain_versions(
+        device, integrator, monkeypatch):
+    """A replayed render with the kernels (one launch each a wave or a
+    bounce) equals the eager render with the plain versions bit for bit,
+    under torch's deterministic algorithms; "bssrdf" is the regen render
+    of the subsurface variant, whose probes fetch through them too."""
+    import dataclasses
+    from tpu_pathtracer_torch.tracer import device_loop, regen, wavefront
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        imgs = {}
+        for mode in ("kernel", "plain"):
+            r, rc = _graph_case(
+                "bssrdf" if integrator == "bssrdf" else "default", device)
+            if integrator == "bounce":
+                r.settings = dataclasses.replace(r.settings,
+                                                 integrator="bounce")
+            if mode == "plain":
+                for mod in (wavefront, regen):
+                    for k in FETCH_NAMES:
+                        if hasattr(mod, k):
+                            monkeypatch.setattr(mod, k, plain_fetch(k))
+                with device_loop.no_graphs():
+                    imgs[mode] = r.render_frames(r.zeros_accum(), rc, 1, 2)
+                monkeypatch.undo()
+            else:
+                r.render_frames(r.zeros_accum(), rc, 1, 2)   # captures
+                before = dict(surface_fetch.LAUNCHES)
+                imgs[mode] = r.render_frames(r.zeros_accum(), rc, 1, 2)
+                moved = {k: surface_fetch.LAUNCHES[k] - before[k]
+                         for k in FETCH_NAMES}
+                assert moved["fetch_attributes"] > 0, moved
+                assert (moved["env_tex_merged"] > 0) == \
+                    (integrator != "bounce"), moved
+                assert (moved["texture_radiance"] > 0) == \
+                    (integrator != "regen"), moved
     finally:
         torch.use_deterministic_algorithms(False)
     assert torch.equal(imgs["kernel"], imgs["plain"])

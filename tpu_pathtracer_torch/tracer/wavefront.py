@@ -1,8 +1,11 @@
 """Render settings, traversal dispatch and the per-wave shading stages
 (port of tracer/wavefront.py).
 
-Every stage is plain tensor code over lane columns. What changed from the
-JAX version: `gather_material` is a row gather (the one-hot matmul was a
+Every stage is plain tensor code over lane columns, but for the BSDF draw
+(`shade`) and the surface fetches (`fetch_attributes`, `env_tex_merged`,
+`texture_radiance`), which dispatch to hand-written kernels on a CUDA
+device (ops/shade.py, ops/surface_fetch.py). What changed from the JAX
+version: `gather_material` is a row gather (the one-hot matmul was a
 TPU choice). `make_integrator` is the classic bounce integrator, one
 device program as the JAX package's `while_loop` inside the Renderer's
 `fori_loop` makes it (tpu_pathtracer/tracer/wavefront.py:575-794,
@@ -18,17 +21,17 @@ import functools
 import numpy as np
 import torch
 
-from ..core.vecmath import (
-    PI, INV_PI, RAY_MIN, RAY_MAX, normalize, barycentric, dot,
-)
+from ..core.vecmath import INV_PI, RAY_MIN, RAY_MAX, normalize, dot
 from ..core.rng import RaySampler, wang_hash
 from ..scene.config import MAT_DIFF
 from ..materials.fresnel import fresnel_dielectric, fresnel_moment_1
-from ..scene.texture import (
-    sample_texture_quad, sample_envmap_quad, sample_envmap_quad_pdf,
-    _uv_from_dir, _corner_pdf, _bilinear_rows,
-)
+from ..scene.texture import sample_envmap_quad, sample_envmap_quad_pdf
 from ..ops.shade import shade
+from ..ops.surface_fetch import (
+    fetch_attributes_plain, fetch_attributes_cuda, env_tex_merged_plain,
+    env_tex_merged_cuda, texture_radiance_plain, texture_radiance_cuda,
+    mis_env_weight,
+)
 from . import device_loop
 from .envsample import power_heuristic, sample_env
 from .traverse import intersect_scene
@@ -144,18 +147,13 @@ def pack_tri_attributes(tri_pos, tri_uv, tri_nrm, tri_mat,
 
 def fetch_attributes(scene, hit_slot, hitpoint):
     """Barycentric-interpolated uv + smooth normal + geometric normal at the
-    hit, from one row gather. Returns (hit_uv, smooth_n, mat_id, tri_n);
-    tri_n is zero on miss lanes."""
-    a = scene["tri_attr"][torch.clamp_min(hit_slot, 0).long()]     # [N,28]
-    p0, p1, p2 = a[:, 0:3], a[:, 3:6], a[:, 6:9]
-    u, v, w = barycentric(hitpoint, p0, p1, p2)
-    hit_uv = (u[:, None] * a[:, 9:11] + v[:, None] * a[:, 11:13]
-              + w[:, None] * a[:, 13:15])
-    smooth_n = (u[:, None] * a[:, 15:18] + v[:, None] * a[:, 18:21]
-                + w[:, None] * a[:, 21:24])
-    mat_id = a[:, 24].contiguous().view(torch.int32)
-    tri_n = torch.where((hit_slot >= 0)[:, None], a[:, 25:28], 0.0)
-    return hit_uv, smooth_n, mat_id, tri_n
+    hit, from one row of scene["tri_attr"]. Returns (hit_uv, smooth_n,
+    mat_id, tri_n); tri_n is zero on miss lanes. CPU tensors take the
+    plain version (ops/surface_fetch.py), any other device the kernel
+    (csrc/fetch.cu) or an error."""
+    if hit_slot.device.type == "cpu":
+        return fetch_attributes_plain(scene, hit_slot, hitpoint)
+    return fetch_attributes_cuda(scene, hit_slot, hitpoint)
 
 
 # material table column layout (see materials_to_arrays / pack_mat_table)
@@ -204,15 +202,6 @@ def env_radiance(scene, settings: RenderSettings, raydir, env_rotation):
     return scene["env_const"].expand(raydir.shape)
 
 
-def _mis_env_weight(raydir, p_uv, bsdf_pdf):
-    """BSDF-side MIS weight of an env hit; bsdf_pdf < 0 means no env NEE at
-    the previous vertex (weight 1)."""
-    y = raydir[:, 1]
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - y * y, 1e-8))
-    pdf_e = p_uv / (2.0 * PI * PI * sin_t)
-    return torch.where(bsdf_pdf < 0.0, 1.0, power_heuristic(bsdf_pdf, pdf_e))
-
-
 def env_miss_weighted(scene, settings: RenderSettings, raydir, bsdf_pdf,
                       env_rotation):
     """Environment radiance already weighted by the BSDF-side MIS factor;
@@ -224,12 +213,16 @@ def env_miss_weighted(scene, settings: RenderSettings, raydir, bsdf_pdf,
     L, p_uv = sample_envmap_quad_pdf(
         scene["envmap_quad"], scene["env_h"], scene["env_w"], raydir,
         env_rotation)
-    return _mis_env_weight(raydir, p_uv, bsdf_pdf)[:, None] * L
+    return mis_env_weight(raydir, p_uv, bsdf_pdf)[:, None] * L
 
 
 def texture_radiance(scene, hit_uv):
-    return sample_texture_quad(scene["texture_quad"], scene["tex_h"],
-                               scene["tex_w"], hit_uv[:, 0], hit_uv[:, 1])
+    """Texture radiance at hit_uv from one row of scene["texture_quad"]:
+    the plain version (ops/surface_fetch.py) for CPU tensors, the kernel
+    (csrc/envtex.cu, texture-only) or an error for any other device."""
+    if hit_uv.device.type == "cpu":
+        return texture_radiance_plain(scene, hit_uv)
+    return texture_radiance_cuda(scene, hit_uv)
 
 
 def pack_envtex_quad(env_quad16, tex_quad12):
@@ -249,40 +242,15 @@ def env_tex_merged(scene, settings: RenderSettings, raydir, bsdf_pdf,
     """MIS-weighted env-miss radiance AND texture radiance from one gather
     of the merged envtex_quad table: a miss lane reads its env row, any
     other lane its texture row. Returns (env_weighted_L [N,3],
-    tex_rgb [N,3]), equal to env_miss_weighted / texture_radiance.
-
-    Miss lanes carry non-finite hit_uv (the hit point at t = RAY_MAX);
-    their texture row index is kept in range by the remainders and never
-    selected."""
-    He, We = scene["env_h"], scene["env_w"]
-    Ht, Wt = scene["tex_h"], scene["tex_w"]
-    u_e, v_e = _uv_from_dir(raydir, env_rotation)
-    xe = u_e * We - 0.5
-    ye = v_e * He - 0.5
-    xe0 = torch.floor(xe)
-    ye0 = torch.floor(ye)
-    fxe = (xe - xe0)[..., None]
-    fye = (ye - ye0)[..., None]
-    xe0i = torch.clamp(xe0.to(torch.int32), 0, We - 1)
-    ye0i = torch.clamp(ye0.to(torch.int32), 0, He - 1)
-    env_row = ye0i * We + xe0i
-    u_t = torch.remainder(hit_uv[:, 0], 1.0)
-    v_t = torch.remainder(hit_uv[:, 1], 1.0)
-    xt = u_t * Wt - 0.5
-    yt = v_t * Ht - 0.5
-    xt0 = torch.floor(xt)
-    yt0 = torch.floor(yt)
-    fxt = (xt - xt0)[..., None]
-    fyt = (yt - yt0)[..., None]
-    xt0i = torch.remainder(xt0.to(torch.int32), Wt)
-    yt0i = torch.remainder(yt0.to(torch.int32), Ht)
-    tex_row = He * We + yt0i * Wt + xt0i
-
-    q = scene["envtex_quad"][torch.where(miss, env_row, tex_row).long()]
-    p_uv = _corner_pdf(q, u_e, v_e, xe0i, ye0i, He, We)
-    env_L = _mis_env_weight(raydir, p_uv, bsdf_pdf)[:, None] \
-        * _bilinear_rows(q, fxe, fye)
-    return env_L, _bilinear_rows(q, fxt, fyt)
+    tex_rgb [N,3]), equal to env_miss_weighted / texture_radiance. CPU
+    tensors take the plain version (ops/surface_fetch.py), any other
+    device the kernel (csrc/envtex.cu), which takes env_rotation as a 0-d
+    f32 tensor on that device, or an error."""
+    if raydir.device.type == "cpu":
+        return env_tex_merged_plain(scene, settings, raydir, bsdf_pdf,
+                                    env_rotation, miss, hit_uv)
+    return env_tex_merged_cuda(scene, raydir, bsdf_pdf, env_rotation, miss,
+                               hit_uv)
 
 
 def plus_zero_times(x, dup):

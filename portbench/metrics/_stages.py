@@ -1,0 +1,127 @@
+"""The stage marks of the program's instrumented calls, as the per-layer
+readers read them. `STAGES`, `MARK_PREFIX`, `stage_device_ms` and
+`_is_mark` are frozen copies of `tpu_pathtracer_torch/ops/marks.py` and
+`utils/profiling.py` as this benchmark first read them, unchanged but for
+this docstring (the trace arithmetic they use is `_trace.py`'s); the rest
+is the benchmark's own. A trace of a program without the
+marks or spans gives None."""
+from __future__ import annotations
+
+import collections
+
+from portbench.metrics._trace import DEVICE_CATS, _span, load_events
+
+# the stages of a regen wave in wave order, each running from its mark to
+# the next; `end` closes the wave (tracer/regen.py: regen_wave)
+STAGES = ("respawn", "ext_trace", "surface", "material", "shade", "bssrdf",
+          "sample_env", "shadow_trace", "permute", "scatter", "end")
+MARK_PREFIX = "pt_stage_"
+
+
+def stage_device_ms(trace, window=None):
+    """Device time of each wave stage of an instrumented call, from the
+    stage marks (the pt_stage_* kernels) among the device events that
+    start inside the record_function `window` (all when None). Each
+    device event belongs to the latest mark that started before it; the
+    `end` mark closes a wave, so what runs from there to the next mark
+    (and before the first mark) belongs to no stage.
+
+    Returns {"stages": {stage: ms} for each stage marked, "none_ms",
+    "marks_ms" (the marks' own kernels), "marks" (their count),
+    "wave_starts" (us, the start of each `respawn` mark), "wave_ms" (each
+    wave's device ms, from its `respawn` mark to its `end` mark)}."""
+    events = load_events(trace)
+    w0, w1 = _span(events, window)
+    dev = sorted(((e["ts"], not _is_mark(e["name"]), e) for e in events
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
+                  and w0 <= e["ts"] < w1), key=lambda x: x[:2])
+    stages = collections.Counter()
+    none_us = marks_us = 0.0
+    n_marks = 0
+    starts, wave_us = [], []
+    stage = None
+    for ts, not_mark, e in dev:
+        dur = e.get("dur", 0)
+        if not not_mark:
+            stage = e["name"][len(MARK_PREFIX):]
+            marks_us += dur
+            n_marks += 1
+            if stage == "respawn":
+                starts.append(ts)
+                wave_us.append(0.0)
+            if stage == "end":
+                stage = None
+            else:
+                stages[stage] += 0.0
+            continue
+        if stage is None:
+            none_us += dur
+        else:
+            stages[stage] += dur
+            if wave_us:
+                wave_us[-1] += dur
+    return {"stages": {k: us / 1e3 for k, us in stages.items()},
+            "none_ms": none_us / 1e3, "marks_ms": marks_us / 1e3,
+            "marks": n_marks, "wave_starts": starts,
+            "wave_ms": [us / 1e3 for us in wave_us]}
+
+
+def _is_mark(name):
+    return name.startswith(MARK_PREFIX) and \
+        name[len(MARK_PREFIX):] in STAGES
+
+
+# ---- the benchmark's own ----
+
+def render_stages(run):
+    """stage_device_ms of a traced render run's window, or None where the
+    run is not a render or its trace holds no stage mark."""
+    if run.get("loop") != "render" or not run.get("events") \
+            or not run.get("frames"):
+        return None
+    got = stage_device_ms(run["events"], run["window"])
+    return got if got["marks"] else None
+
+
+def stage_ms(run, stage):
+    """Device ms a frame of `stage` in the traced call, or None."""
+    got = render_stages(run)
+    if got is None or stage not in got["stages"]:
+        return None
+    return got["stages"][stage] / run["frames"]
+
+
+def _host_spans(run):
+    """{name: [duration us]} of the program's host spans (the
+    record_functions of utils/profiling.py: span) inside a traced drag
+    window, or None where the run is not a drag."""
+    if run.get("loop") != "drag" or not run.get("events"):
+        return None
+    w0, w1 = _span(run["events"], run["window"])
+    spans = collections.defaultdict(list)
+    for e in run["events"]:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation" \
+                and w0 <= e["ts"] < w1:
+            spans[e["name"]].append(e.get("dur", 0))
+    return spans
+
+
+def traced_steps(run):
+    """The viewer steps the traced drag window holds, one program span
+    `pt.viewer.preview` a step; 0 where it holds none."""
+    spans = _host_spans(run)
+    return len(spans.get("pt.viewer.preview", ())) if spans else 0
+
+
+def host_span_ms(run, name):
+    """Host ms a viewer step in the program's spans named `name` inside
+    the traced drag window: their summed durations over the traced steps
+    (traced_steps). These steps run under the profiler, so compare the
+    result with readback_traced_ms, the benchmark's readback over the same
+    steps. None where the run is not a drag or its trace holds no such
+    span."""
+    spans = _host_spans(run)
+    steps = traced_steps(run)
+    if not steps or name not in spans:
+        return None
+    return sum(spans[name]) / 1e3 / steps

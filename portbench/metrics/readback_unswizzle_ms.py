@@ -1,0 +1,11 @@
+"""readback_unswizzle_ms: host ms a viewer step in the program's span
+`pt.image.unswizzle`: the host's scatter of the lane-ordered pixels into the
+[H,W,3] image (tracer/renderer.py: Renderer.accum_to_image); the spans'
+summed time over the traced drag steps (one `pt.viewer.preview` span a step;
+_stages.py: host_span_ms), the steps of readback_traced_ms. Moves
+drag_step_ms."""
+from portbench.metrics._stages import host_span_ms
+
+
+def read(run):
+    return host_span_ms(run, "pt.image.unswizzle")

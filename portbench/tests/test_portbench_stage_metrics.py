@@ -1,0 +1,147 @@
+"""The readers of the program's own stage marks and viewer spans
+(portbench/metrics/_stages.py) on small chrome traces of the shape
+torch.profiler writes: a replayed graph's stage marks are kernels named
+pt_stage_<stage>, a span is a user_annotation. A trace of a program
+without them gives None for every such metric, and so does an empty run."""
+import pytest
+
+from pb_helpers import ROOT, bench, toy  # noqa: F401  (bench: a fixture)
+
+W = "portbench_window"
+STAGE_METRICS = ["stage_ms." + s for s in (
+    "respawn", "ext_trace", "surface", "material", "shade", "bssrdf",
+    "sample_env", "shadow_trace", "permute", "scatter")]
+SPAN_METRICS = ["preview_span_ms", "readback_copy_ms",
+                "readback_unswizzle_ms", "readback_upscale_ms",
+                "readback_traced_ms"]
+READBACK = ["readback_copy_ms", "readback_unswizzle_ms",
+            "readback_upscale_ms"]
+
+
+def _ev(name, cat, ts, dur):
+    return {"ph": "X", "name": name, "cat": cat, "ts": float(ts),
+            "dur": float(dur), "args": {}, "tid": 1}
+
+
+def _wave(t, stages, us=10):
+    """A wave's marks from time t, each stage followed by one kernel of
+    `us` microseconds, then the end mark and a status copy."""
+    out = []
+    for s in stages:
+        out += [_ev("pt_stage_" + s, "kernel", t, 1),
+                _ev("elementwise_kernel", "kernel", t + 2, us)]
+        t += us + 3
+    out += [_ev("pt_stage_end", "kernel", t, 1),
+            _ev("Memcpy DtoH (Device -> Pinned)", "gpu_memcpy", t + 2, 2)]
+    return out, t + 10
+
+
+def render_trace():
+    """Three waves: two at the full width (20 us a stage), one drain wave
+    (5 us a stage); no BSSRDF stage."""
+    stages = ["respawn", "ext_trace", "surface", "material", "shade",
+              "sample_env", "shadow_trace", "permute", "scatter"]
+    ev, t = [_ev(W, "user_annotation", 0, 10000),
+             _ev("cudaGraphLaunch", "cuda_runtime", 1, 5)], 10
+    for us in (20, 20, 5):
+        w, t = _wave(t, stages, us)
+        ev += w
+    return ev
+
+
+def _read(name, run):
+    from portbench.run import read_metric
+    return read_metric(name, run)
+
+
+def test_stage_readers_give_ms_a_frame():
+    run = {"loop": "render", "events": render_trace(), "window": W,
+           "frames": 2, "waves": {1024: 2, 256: 1}}
+    for name in STAGE_METRICS:
+        want = None if name == "stage_ms.bssrdf" else (20 + 20 + 5) / 1e3 / 2
+        got = _read(name, run)
+        assert got == (pytest.approx(want) if want else None), name
+    # the last wave: 9 stages of 5 us
+    assert _read("drain_ms_per_call", run) == pytest.approx(0.045)
+    assert _read("drain_ms_per_call", dict(run, waves={1024: 3})) == 0.0
+    # a counter that disagrees with the marks gives nothing
+    assert _read("drain_ms_per_call", dict(run, waves={1024: 5})) is None
+
+
+def test_stage_device_ms_of_the_benchmark():
+    from portbench.metrics import _stages
+    got = _stages.stage_device_ms(render_trace(), W)
+    assert got["marks"] == 30 and got["marks_ms"] == pytest.approx(0.030)
+    assert got["none_ms"] == pytest.approx(0.006)        # the status copies
+    assert got["wave_ms"] == pytest.approx([0.18, 0.18, 0.045])
+    assert len(got["wave_starts"]) == 3
+
+
+def _drag_trace(steps=2):
+    ev = [_ev(W, "user_annotation", 0, 10 ** 7)]
+    t = 100
+    for _ in range(steps):
+        for name, dur in (("pt.viewer.preview", 25000),
+                          ("pt.image.copy", 1000),
+                          ("pt.image.unswizzle", 9000),
+                          ("pt.viewer.upscale", 12000)):
+            ev.append(_ev(name, "user_annotation", t, dur))
+            # the device's view of a record_function, not a host span
+            ev.append(_ev(name, "gpu_user_annotation", t, dur))
+            t += dur + 10
+    return ev
+
+
+def test_span_readers_give_ms_a_step():
+    # the benchmark's own spans (s): three untraced steps with a 0.030 s
+    # readback, then the two traced ones with 0.020 and 0.024 s
+    render = [(i, i + 0.025) for i in range(5)]
+    step = [(i, i + 0.025 + rb) for i, rb in
+            enumerate((0.030, 0.030, 0.030, 0.020, 0.024))]
+    run = {"loop": "drag", "events": _drag_trace(), "window": W,
+           "spans": {"render": render, "step": step}}
+    assert _read("preview_span_ms", run) == pytest.approx(25.0)
+    assert _read("readback_copy_ms", run) == pytest.approx(1.0)
+    assert _read("readback_unswizzle_ms", run) == pytest.approx(9.0)
+    assert _read("readback_upscale_ms", run) == pytest.approx(12.0)
+    # the readback of the two traced steps only, not readback_ms's 26.8
+    assert _read("readback_traced_ms", run) == pytest.approx(22.0)
+    assert _read("readback_ms", run) == pytest.approx(26.8)
+    # more traced steps than the benchmark timed: nothing to compare
+    assert _read("readback_traced_ms", dict(run, events=_drag_trace(
+        6))) is None
+    # the render readers find nothing in a drag run, and back
+    assert _read("stage_ms.permute", run) is None
+    render = {"loop": "render", "events": render_trace(), "window": W,
+              "frames": 2}
+    assert _read("readback_copy_ms", render) is None
+
+
+@pytest.mark.parametrize("name", STAGE_METRICS + SPAN_METRICS
+                         + ["drain_ms_per_call"])
+def test_a_program_without_marks_or_spans_gives_none(name):
+    """The parent of the marks: kernels and host ops, no pt_ event."""
+    bare = [e for e in render_trace() + _drag_trace()[1:]
+            if not e["name"].startswith(("pt_stage_", "pt."))]
+    for loop in ("render", "drag"):
+        run = {"loop": loop, "events": bare, "window": W, "frames": 2,
+               "waves": {1024: 3}, "spans": {}}
+        assert _read(name, run) is None
+    assert _read(name, {}) is None
+
+
+def test_traced_drag_on_the_cpu_reports_the_viewer_spans(bench):
+    """A toy traced drag run on the CPU: the program's viewer spans are in
+    its trace, so their readers report; on the CPU a stage mark is no
+    device event, so the stage readers report nothing there."""
+    from portbench.run import run_cell
+    res = run_cell(bench, "testobj_large_drag_1080p", 2 ** 31 + 7, 0.5, 1,
+                   "cpu", toy(bench, "testobj_large_drag_1080p"))
+    m = res["metrics"]
+    assert all(m[n]["value"] > 0 and m[n]["unit"] == "ms"
+               for n in SPAN_METRICS), sorted(m)
+    # the program's spans lie inside the benchmark's readback of the same
+    # steps (host clocks; 1 ms for the two clocks' rounding)
+    assert sum(m[n]["value"] for n in READBACK) \
+        <= m["readback_traced_ms"]["value"] + 1.0
+    assert res["correct"]

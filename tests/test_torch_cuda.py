@@ -3,7 +3,8 @@ scatter, the shade kernel, the surface fetches) against their plain
 PyTorch versions, on the card, and the render
 paths that launch them (media, BSSRDF, bounce, chunks and shards, the regen
 orders, the dup_stage hook, the device tonemap and the viewer's session,
-the replayed regen and bounce frames against the eager ones).
+the replayed regen and bounce frames against the eager ones, the stage
+marks of a replayed with_stats call).
 
 These tests need an NVIDIA GPU and nvcc; they skip elsewhere. The file
 imports no jax, so it also runs where jax is not installed:
@@ -770,6 +771,54 @@ def test_graph_frame_equals_no_graphs_bit_for_bit(device, case):
     assert (waves, rays) == (w_waves, w_rays)
     assert counts == w_counts and counts["traverse_closest"] > 0
     assert captured is not None, "no wave was captured"
+
+
+def _kernel_events(fn, tmp_path):
+    """The device kernels of fn() under torch.profiler, in start order."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted((e for e in events if e.get("ph") == "X"
+                   and e.get("cat") == "kernel"), key=lambda e: e["ts"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "bssrdf"])
+def test_replayed_stats_call_carries_the_stage_marks(device, case,
+                                                     tmp_path):
+    """A replayed with_stats call's trace holds the pt_stage_* kernels
+    (csrc/marks.cu) in stage order, one respawn a wave launched; the
+    replayed call without with_stats holds none; stage_device_ms gives
+    every marked stage device time."""
+    from tpu_pathtracer_torch.ops.marks import MARK_PREFIX as prefix
+    from tpu_pathtracer_torch.utils import profiling
+    r, rc = _graph_case(case, device)
+    for stats in (True, False):                      # captures
+        r.render_frames(r.zeros_accum(), rc, 1, 2, with_stats=stats)
+    traced = _kernel_events(lambda: r.render_frames(
+        r.zeros_accum(), rc, 1, 2, with_stats=True), tmp_path)
+    launched = sum(r.regen_integrator(True).last_waves.values())
+    plain = _kernel_events(lambda: r.render_frames(r.zeros_accum(), rc, 1,
+                                                   2), tmp_path)
+    marks = [e["name"][len(prefix):] for e in traced
+             if e["name"].startswith(prefix)]
+    want = ["respawn", "ext_trace", "surface", "material", "shade"] \
+        + (["bssrdf"] if case == "bssrdf" else []) \
+        + ["sample_env", "shadow_trace", "permute", "scatter", "end"]
+    assert marks == want * launched and launched > 3
+    assert not [e for e in plain if e["name"].startswith(prefix)]
+    assert any("traverse_kernel" in e["name"] for e in plain)
+    got = profiling.stage_device_ms(traced)
+    assert sorted(got["stages"]) == sorted(want[:-1])
+    assert all(ms > 0 for ms in got["stages"].values()), got["stages"]
+    assert len(got["wave_ms"]) == launched and got["marks"] == len(marks)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,248 @@
+"""The port's own spans (utils/profiling.py) and stage marks
+(ops/marks.py): the stage marks of a regen with_stats call in wave order,
+one `respawn` a wave counted in RegenIntegrator.last_waves, none without
+with_stats and none in the bounce integrator, the image unchanged by
+them; the viewer step's host spans; stage_device_ms
+on a synthetic trace; and the CLI's rate line, which synchronizes once a
+report. On the CPU a mark is a zero-length record_function named as the
+kernel that marks the stage on the card (the card's marks are in
+tests/test_torch_cuda.py)."""
+import dataclasses
+import functools
+import json
+import os
+import pathlib
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from tpu_pathtracer_torch.scene import demo
+from tpu_pathtracer_torch.ops import marks as stage_marks
+from tpu_pathtracer_torch.tools import interactive as viewer
+from tpu_pathtracer_torch.tracer.renderer import Renderer
+from tpu_pathtracer_torch.utils import cuda_build, profiling, timing
+
+torch.set_num_threads(2)
+# The first MKL-backed call (torch.sqrt) on a fresh CPU pool thread can
+# return a low-accuracy result (~3e-4 relative) for that thread's share;
+# one call spanning both threads settles it before any test compares.
+torch.sqrt(torch.ones(1 << 16))
+W = 8
+REGEN = ["respawn", "ext_trace", "surface", "material", "shade",
+         "sample_env", "shadow_trace", "permute", "scatter", "end"]
+
+
+@functools.lru_cache(maxsize=None)
+def _renderer(variant="default", width=W):
+    fb, mats, envmap, texture = demo.testobj_scene(cache_dir=None,
+                                                   variant=variant)
+    return Renderer(fb, mats, envmap=envmap, texture=texture, width=width,
+                    height=width, device="cpu")
+
+
+def _camera(width=W):
+    return demo.default_camera(width, width).build_render_camera()
+
+
+def _profiled(fn, tmp_path):
+    """(fn's result, the chrome trace's host events in start order)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    events = [e for e in events if e.get("ph") == "X"]
+    return out, sorted(events, key=lambda e: e["ts"])
+
+
+def _marks(events):
+    return [e["name"][len(stage_marks.MARK_PREFIX):] for e in events
+            if e["name"].startswith(stage_marks.MARK_PREFIX)]
+
+
+def _waves(marks):
+    """The marks split at each respawn."""
+    waves = []
+    for m in marks:
+        if m == "respawn":
+            waves.append([])
+        waves[-1].append(m)
+    return waves
+
+
+def test_stage_names_match_the_mark_kernels():
+    with open(os.path.join(cuda_build.CSRC, "marks.cu")) as f:
+        src = f.read()
+    kernels = [line.split("void ")[1].split("(")[0]
+               for line in src.splitlines()
+               if line.startswith('extern "C" __global__ void')]
+    assert kernels == [stage_marks.MARK_PREFIX + s
+                       for s in stage_marks.STAGES]
+
+
+@functools.lru_cache(maxsize=None)
+def _profiled_render(variant, settings=(), with_stats=True):
+    """(render_frames' result, the marks, the host op names, the waves
+    counted) of a 1-frame call under the profiler."""
+    r = _renderer(variant)
+    base = r.settings
+    r.settings = dataclasses.replace(base, **dict(settings))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out, events = _profiled(
+                lambda: r.render_frames(r.zeros_accum(), _camera(), 1, 1,
+                                        with_stats=with_stats),
+                pathlib.Path(tmp))
+        counted = r.regen_integrator(with_stats).last_waves
+    finally:
+        r.settings = base
+    return out, _marks(events), {e["name"] for e in events}, counted
+
+
+@pytest.mark.parametrize("variant,settings", [
+    ("default", ()), ("subsurface", ()),
+    ("default", (("scatter_mode", "wave"),))])
+def test_with_stats_call_marks_every_stage_of_every_wave(variant, settings):
+    (acc, waves, rays), marks, _, counted = _profiled_render(variant,
+                                                             settings)
+    want = list(REGEN)
+    if variant == "subsurface":
+        want.insert(want.index("shade") + 1, "bssrdf")
+    if dict(settings).get("scatter_mode") == "wave":
+        # every wave adds its contribution before the permute
+        want.remove("scatter")
+        want.insert(want.index("permute"), "scatter")
+    per_wave = _waves(marks)
+    # every wave launched, the one past the end included (device_loop.LAG)
+    assert len(per_wave) == sum(counted.values()) == waves + 1 > 3
+    assert len(counted) == 3                 # the drain widths ran
+    assert all(w == want for w in per_wave), per_wave[0]
+
+
+def test_bounce_with_stats_carries_no_mark(tmp_path):
+    """The marks are the regen wave's: the bounce step shares shade_hits
+    but passes it no marker, so its with_stats call marks nothing."""
+    r = _renderer()
+    base = r.settings
+    r.settings = dataclasses.replace(base, integrator="bounce")
+    try:
+        (acc, bounces, rays), events = _profiled(
+            lambda: r.render_frames(r.zeros_accum(), _camera(), 1, 1,
+                                    with_stats=True), tmp_path)
+        launched = r.bounce_integrator(True).last_launched
+    finally:
+        r.settings = base
+    assert _marks(events) == [] and launched >= bounces > 0
+
+
+def test_call_without_stats_marks_nothing():
+    acc, marks, names, _ = _profiled_render("default", with_stats=False)
+    assert marks == [] and "aten::index_add_" in names
+
+
+@pytest.mark.parametrize("variant", ["default", "subsurface"])
+def test_marks_leave_the_image_bits(variant):
+    (marked, _, _), marks, _, _ = _profiled_render(variant)
+    r = _renderer(variant)
+    assert marks
+    assert torch.equal(marked, r.render_frames(r.zeros_accum(), _camera(),
+                                               1, 1))
+
+
+VIEWER_SPANS = ("pt.viewer.preview", "pt.image.copy", "pt.image.unswizzle",
+                "pt.viewer.upscale")
+
+
+def test_preview_step_holds_one_of_each_viewer_span(tmp_path):
+    r = _renderer(width=64)
+    lo = viewer.preview_renderer(r, demo.testobj_scene(cache_dir=None), 2)
+    s = viewer.ViewerSession(r, demo.default_camera(64, 64), lo,
+                             cam_path=str(tmp_path / "v.cam"),
+                             out_dir=str(tmp_path), clock=lambda: 100.0)
+    img, events = _profiled(
+        lambda: s.step([("MOUSE", "press", 0, False, 10, 10),
+                        ("MOUSE", "drag", 0, False, 13, 11)]), tmp_path)
+    assert s.kind == "preview" and img.shape == (64, 64, 3)
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("pt.")]
+    assert sorted(e["name"] for e in spans) == sorted(VIEWER_SPANS)
+    by = {e["name"]: e for e in spans}
+    # the copy and the un-swizzle run after the preview, the upscale last
+    order = sorted(VIEWER_SPANS, key=lambda n: by[n]["ts"])
+    assert order == list(VIEWER_SPANS)
+    want = lo.accum_to_image(lo.render_frames(lo.zeros_accum(), s.camera,
+                                              1, 1), 1)
+    np.testing.assert_array_equal(img, want.repeat(2, 0).repeat(2, 1))
+
+
+def test_span_is_the_shared_null_context_without_a_profiler():
+    assert profiling.span("pt.a") is profiling.span("pt.b")
+    with profiling.span("pt.a") as v:
+        assert v is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert profiling.span("pt.a") is not profiling.span("pt.a")
+    assert stage_marks.stage_marker(False, torch.device("cpu")) is \
+        stage_marks.stage_marker(False, torch.device("cuda")) is \
+        stage_marks.no_mark
+
+
+def _ev(name, ts, dur, cat="kernel"):
+    return {"ph": "X", "name": name, "cat": cat, "ts": float(ts),
+            "dur": float(dur), "args": {}, "tid": 1}
+
+
+def _stage_trace():
+    m = stage_marks.MARK_PREFIX
+    return [
+        _ev("window", 0, 1000, "user_annotation"),
+        _ev("before_first_mark", 5, 5),
+        # wave 1
+        _ev(m + "respawn", 10, 1), _ev("elementwise", 12, 20),
+        _ev(m + "permute", 40, 1), _ev("CatArrayBatchedCopy", 42, 30),
+        _ev("vectorized_gather_kernel", 75, 40),
+        _ev(m + "end", 120, 1),
+        _ev("Memcpy DtoH", 125, 3, "gpu_memcpy"),       # the status copy
+        # wave 2 (a drain wave)
+        _ev(m + "respawn", 200, 1), _ev("elementwise", 202, 8),
+        _ev(m + "scatter", 215, 1), _ev("indexFuncLargeIndex", 217, 10),
+        _ev(m + "end", 230, 1),
+        _ev("cudaGraphLaunch", 240, 5, "cuda_runtime"),   # host: not counted
+        _ev("elementwise", 1500, 50),                     # after the window
+    ]
+
+
+def test_stage_device_ms_on_a_synthetic_trace():
+    got = profiling.stage_device_ms(_stage_trace(), "window")
+    assert got["stages"] == pytest.approx(
+        {"respawn": 0.028, "permute": 0.070, "scatter": 0.010})
+    assert got["none_ms"] == pytest.approx(0.008)      # 5 + 3 us
+    assert got["marks_ms"] == pytest.approx(0.006) and got["marks"] == 6
+    assert got["wave_starts"] == [10.0, 200.0]
+    assert got["wave_ms"] == pytest.approx([0.090, 0.018])
+    # every device event of the window is in a stage, in none or a mark
+    total = sum(got["stages"].values()) + got["none_ms"] + got["marks_ms"]
+    assert total == pytest.approx((5 + 20 + 30 + 40 + 3 + 8 + 10 + 6) / 1e3)
+    assert profiling.stage_device_ms(_stage_trace()[:2], "window") == {
+        "stages": {}, "none_ms": 0.005, "marks_ms": 0.0, "marks": 0,
+        "wave_starts": [], "wave_ms": []}
+
+
+def test_rate_line_synchronizes_once_a_report(monkeypatch):
+    synced = []
+    monkeypatch.setattr(timing, "synchronize", synced.append)
+    meter = timing.RateMeter("cpu", interval=1.0)
+    clock = iter([0.2, 0.5, 1.5, 2.0, 3.1, 4.0])
+    meter.timer.elapsed = lambda: next(clock)
+    lines = []
+    for _ in range(4):
+        meter.tick(100, out=lines.append, frames=2)
+    # ticks at 0.2 and 0.5 s pass without a report; the third reports,
+    # read after the synchronize (2.0 s), and so does the fourth
+    assert synced == [torch.device("cpu")] * 2
+    assert lines == [
+        "time 2.0s, frames 6, 333.33 ms/frame, 3.0 FPS, 0.00 Mpaths/s",
+        "time 4.0s, frames 8, 500.00 ms/frame, 2.0 FPS, 0.00 Mpaths/s"]

@@ -46,6 +46,8 @@ import time
 
 import torch
 
+from ..utils.profiling import span
+
 MOVING_S = 0.25                 # preview window after a camera change
 SNAPSHOTS = ((5.0, "output5.ppm"), (50.0, "output50.ppm"))
 
@@ -288,10 +290,12 @@ class ViewerSession:
             self.icam.set_resolution(lo.width, lo.height)
             self.camera = self.icam.build_render_camera()
             self.icam.set_resolution(r.width, r.height)
-            acc = lo.render_frames(lo.zeros_accum(), self.camera, 1, 1)
+            with span("pt.viewer.preview"):
+                acc = lo.render_frames(lo.zeros_accum(), self.camera, 1, 1)
             img = lo.accum_to_image(acc, 1)
-            img = img.repeat(r.height // lo.height, axis=0).repeat(
-                r.width // lo.width, axis=1)
+            with span("pt.viewer.upscale"):
+                img = img.repeat(r.height // lo.height, axis=0).repeat(
+                    r.width // lo.width, axis=1)
             self.kind = "preview"
         else:
             self.camera = self.icam.build_render_camera()

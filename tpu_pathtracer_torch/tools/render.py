@@ -159,7 +159,7 @@ def main(argv=None):
             a[:n], np.float32)).to(accum.device)
         print("resumed at frame %d from %s" % (start_frame, args.resume))
 
-    meter = RateMeter()
+    meter = RateMeter(accum.device)
     t_wall0 = time.time()
     last_snap = time.time()
     ext = os.path.splitext(args.out)[1] or ".png"
@@ -170,7 +170,7 @@ def main(argv=None):
         n = min(batch, args.spp - frame + 1)
         accum = renderer.render_frames(accum, rc, frame, n)
         frame += n
-        meter.tick(W * H * n)
+        meter.tick(W * H * n, frames=n)
         done = frame - 1
         if args.snapshot_every and \
                 time.time() - last_snap > args.snapshot_every:

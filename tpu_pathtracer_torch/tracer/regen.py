@@ -72,6 +72,19 @@ material) and the distant light (`use_distant_light`: one more any-hit
 shadow trace a wave, also from BSSRDF exit points) run in the same wave
 body, as in the JAX package.
 
+Stage marks. A with_stats call (the instrumented one; its key differs
+from the plain call's, so it has graphs of its own) marks the start of
+each stage of a wave with ops/marks.py: stage_mark, in wave order:
+respawn, ext_trace (with the media sampling), surface (the attribute
+fetch, the env / texture lookup), material, shade, bssrdf (has_bssrdf
+only), sample_env, shadow_trace (NEE's and the distant light's any-hit
+traces and what follows up to the permute), permute, scatter (the
+dead-row flush; under scatter_mode "wave" the per-wave add, before the
+permute) and end, after the status. On the card a mark is an empty kernel
+captured into the wave's graph, so a replayed call's trace splits its
+device time by stage (stage_device_ms); a call without with_stats
+launches none.
+
 `dup_stage` (the JAX bench's stage-duplication hook): the stage named
 runs twice a wave, the second call perturbed as in the JAX hook, and the
 duplicate is added times zero on its bits (wavefront.plus_zero_times), so
@@ -92,6 +105,7 @@ import torch
 
 from ..core.vecmath import RAY_MIN, RAY_MAX
 from ..core.rng import RaySampler, wang_hash, MASK32
+from ..ops.marks import stage_marker
 from . import device_loop
 from .medium import medium_interaction
 from .wavefront import (
@@ -255,6 +269,8 @@ def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
     without with_stats)."""
     settings = cfg.settings
     dup = settings.dup_stage
+    mark = stage_marker(cfg.with_stats, o.device)
+    mark("ext_trace")
     hit_slot, hit_t = trace_rays(
         scene, settings, o, d, RAY_MIN, RAY_MAX, anyhit=False,
         active=active, active_prefix=prefix)
@@ -272,6 +288,7 @@ def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
         miss = active & ~sampled_medium & (hit_t > 1e10)
     else:
         miss = active & (hit_t > 1e10)
+    mark("surface")
     hitpoint = o + d * hit_t[:, None]
     hit_uv, smooth_n, mat_id, tri_n = fetch_attributes(
         scene, hit_slot, hitpoint)
@@ -307,7 +324,7 @@ def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
     (r, o, d, m, pdf_new, lb, mid, contrib, ended, n_shadow) = shade_hits(
         scene, settings, r, o, d, m, pdf_prev, lbn_a, mid, surf, hit,
         tex_rgb, contrib, cam_vec[15], light, count_rays=cfg.with_stats,
-        dup_stage=dup)
+        dup_stage=dup, mark=mark)
     bn = torch.where(active, bn_prev + 1, bn_prev)
     finished = active & (miss | ended | (bn >= lb)
                          | (bn >= settings.bounce_max))
@@ -325,6 +342,8 @@ def regen_wave(cfg: WaveConfig, scene, st):
     s = cfg.settings
     P, N, dup = cfg.P, cfg.N, s.dup_stage
     lane, live = st["lane"], st["active"]
+    mark = stage_marker(cfg.with_stats, lane.device)
+    mark("respawn")
     nxt, alive, waves, tot = st["next"], st["alive"], st["waves"], st["tot"]
     go = (nxt < tot) | (alive > 0)
     if cfg.stop_after_waves:
@@ -394,11 +413,13 @@ def regen_wave(cfg: WaveConfig, scene, st):
     if cfg.deferred:
         ell = vec("L") + contrib
     else:
+        mark("scatter")
         _add_to_image(st, st["pixel"], contrib)
         ell = vec("L")
     alive_new = torch.where(go, n_act - finished.sum(), alive)
     waves.add_(go.to(torch.int64))
 
+    mark("permute")
     if cfg.inplace:
         for k, v in (("orig", o), ("dir", d), ("mask", m),
                      ("bsdf_pdf", pdf_new), ("rng", r), ("lbn", lb),
@@ -410,6 +431,7 @@ def regen_wave(cfg: WaveConfig, scene, st):
                  finished | ~act, hit_slot)
         torch.lt(lane, alive_new, out=live)
         if cfg.deferred:
+            mark("scatter")
             # the paths that died this wave are now rows [alive, n_act)
             died = (lane >= alive_new) & (lane < n_act)
             _add_to_image(st, st["pixel"],
@@ -420,6 +442,7 @@ def regen_wave(cfg: WaveConfig, scene, st):
         more = more & (waves < cfg.stop_after_waves)
     torch.stack([(~more).to(torch.int64), alive, tot - nxt],
                 out=st["status"])
+    mark("end")
 
 
 def _compact(cfg, st, o, d, m, pdf_new, ell, r, lb, bn, mid, last,

@@ -21,6 +21,7 @@ from ..scene.config import SceneDesc, materials_to_arrays, MAT_SUBSURFACE
 from ..scene.camera import RenderCamera
 from ..scene.texture import make_quad_texture
 from ..convert import to_device
+from ..utils.profiling import span
 from . import device_loop
 from .traverse import pack_stream
 from .wavefront import (
@@ -361,10 +362,12 @@ class Renderer:
     def accum_to_buffer(self, accum):
         """Un-swizzle the lane-ordered accumulation into an [H,W,3] buffer."""
         if isinstance(accum, torch.Tensor):
-            accum = accum.detach().cpu().numpy()
-        a = np.asarray(accum)[:self.width * self.height]
-        img = np.zeros((self.height, self.width, 3), np.float32)
-        img[self._lane_py, self._lane_px] = a
+            with span("pt.image.copy"):
+                accum = accum.detach().cpu().numpy()
+        with span("pt.image.unswizzle"):
+            a = np.asarray(accum)[:self.width * self.height]
+            img = np.zeros((self.height, self.width, 3), np.float32)
+            img[self._lane_py, self._lane_px] = a
         return img
 
     def accum_to_image(self, accum, frame_count):
@@ -380,10 +383,14 @@ class Renderer:
         if not isinstance(accum, torch.Tensor):
             return tonemap(self.accum_to_buffer(accum), frame_count)
         n = self.width * self.height
-        x = torch.clamp(accum[:n] / float(max(int(frame_count), 1)), 0.0, 1.0)
-        u8 = (torch.pow(x, 1.0 / 2.2) * 255.0 + 0.5).to(torch.uint8)
-        img = np.zeros((self.height, self.width, 3), np.uint8)
-        img[self._lane_py, self._lane_px] = u8.cpu().numpy()
+        with span("pt.image.copy"):
+            x = torch.clamp(accum[:n] / float(max(int(frame_count), 1)),
+                            0.0, 1.0)
+            u8 = (torch.pow(x, 1.0 / 2.2) * 255.0 + 0.5).to(torch.uint8)
+            u8 = u8.cpu().numpy()
+        with span("pt.image.unswizzle"):
+            img = np.zeros((self.height, self.width, 3), np.uint8)
+            img[self._lane_py, self._lane_px] = u8
         return img
 
 

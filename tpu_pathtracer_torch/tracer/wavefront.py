@@ -32,6 +32,7 @@ from ..ops.surface_fetch import (
     env_tex_merged_cuda, texture_radiance_plain, texture_radiance_cuda,
     mis_env_weight,
 )
+from ..ops.marks import no_mark
 from . import device_loop
 from .envsample import power_heuristic, sample_env
 from .traverse import intersect_scene
@@ -275,7 +276,7 @@ def distant_light(settings: RenderSettings, device):
 
 def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
                medium_id, surf, hit, tex, radiance, env_rotation, light,
-               count_rays=False, dup_stage=""):
+               count_rays=False, dup_stage="", mark=no_mark):
     """The surface half of a segment, shared by both integrators: material,
     emission, the BSDF draw, the BSSRDF probe loop, env NEE with MIS, the
     distant light, the bounce budget and medium tracking, on the lanes
@@ -288,13 +289,16 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
     raydir, mask, bsdf_pdf, lbn, medium_id, radiance, ended, n_shadow):
     ended marks the surface lanes whose path stops here (an emitter), and
     n_shadow is the count of shadow rays traced (a device scalar) with
-    count_rays, else 0.
+    count_rays, else 0. mark(stage) marks the start of each stage
+    (ops/marks.py); the regen wave passes its with_stats call's marker,
+    every other caller none.
 
     dup_stage (passed by the regen wave only): "texture" (when the texture
     is fetched here), "shade", "sample_env" or "shadow_trace" runs that
     stage a second time, perturbed, and drops the duplicate's result as
     plus_zero_times does, so the outputs keep their bits."""
     hit_uv, smooth_n, mat_id, tri_n, hitpoint = hit
+    mark("material")
     mat = gather_material(scene, mat_id)
     use_sn = mat["useNormal"] != 0
     n = normalize(torch.where(use_sn[:, None], smooth_n, tri_n))
@@ -310,6 +314,7 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
     nl = torch.where(into[:, None], n, -n)
     radiance = radiance + torch.where(surf[:, None], mask * mat["emit"], 0.0)
 
+    mark("shade")
     rng_in = rng
     rng, next_dir, mask_mul, offset, term, binc, aux = shade(
         scene, settings, rng, raydir, n, nl, into, mat, objcol,
@@ -325,6 +330,7 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
         offset = plus_zero_times(offset, of2)
     new_orig = hitpoint + nl * (offset * RAY_MIN)[:, None]
     if settings.has_bssrdf:
+        mark("bssrdf")
         ss_lanes = surf & aux["ss_refract"]
         (rng, bs_orig, bs_dir, bs_mul, bs_ok, bs_is_mul,
          bs_normal) = bssrdf_scatter(
@@ -340,7 +346,9 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
     raydir = torch.where(surf[:, None], next_dir, raydir)
 
     n_shadow = 0
-    if settings.use_envmap and settings.env_importance_sampling:
+    env_nee = settings.use_envmap and settings.env_importance_sampling
+    if env_nee:
+        mark("sample_env")
         rng, (e1, e2) = RaySampler.next_n(rng, 2)
         d_env, pdf_env, L_env = sample_env(scene, e1, e2, env_rotation)
         if dup_stage == "sample_env":
@@ -352,6 +360,7 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
         cand = diff_lane & (cos_e > 0.0) & (pdf_env > 1e-12)
         if count_rays:
             n_shadow = n_shadow + cand.sum()
+        mark("shadow_trace")
         _s_slot, s_t = trace_rays(scene, settings, orig, d_env, RAY_MIN,
                                   RAY_MAX, anyhit=True, active=cand)
         if dup_stage == "shadow_trace":
@@ -372,6 +381,8 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
                                torch.where(surf, -1.0, bsdf_pdf))
 
     if light is not None:
+        if not env_nee:
+            mark("shadow_trace")
         ddis, ldis = light
         d_light = ddis.expand(raydir.shape)
         diff_lane = surf & (mat["refltype"] == MAT_DIFF)

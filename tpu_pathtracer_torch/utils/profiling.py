@@ -16,14 +16,29 @@ On a CPU-only profile (`profile_marginal(..., device=False)`) the ops are
 the host's aten ops by exclusive (self) time. Such a profile records no
 shapes (the plain traversal's host trace is large enough as it is), so
 its gathers are not split into pool-width and table ones.
+
+The port's own spans and marks, which land in the same trace on the
+profiler's one clock (nothing is recorded while no profiler runs):
+- `span(name)`: a host span, a record_function while torch.profiler
+  records: `pt.viewer.preview`, `pt.image.copy`, `pt.image.unswizzle`,
+  `pt.viewer.upscale` (tools/interactive.py, tracer/renderer.py);
+- the stage marks of a regen wave's with_stats call (ops/marks.py: on a
+  CUDA device the empty kernel `pt_stage_<stage>` captured into the
+  wave's graph, on the CPU a zero-length record_function of that name):
+  `stage_device_ms` splits a trace's device time by them.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import statistics
 import tempfile
+
+import torch
+
+from ..ops.marks import MARK_PREFIX, STAGES
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "profile_window"          # the record_functions' name prefix
@@ -34,6 +49,16 @@ _COPY_OPS = ("aten::copy_", "aten::clone", "aten::contiguous", "aten::cat",
              "aten::to", "aten::_to_copy", "aten::stack")
 CATEGORIES = ("trace", "image_scatter", "argsort", "permute_gather",
               "gathers", "layout_copies", "other")
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A host span named `name`: torch.profiler.record_function(name)
+    while the profiler records, else one shared null context (no cost
+    beyond the check)."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL_SPAN
+    return torch.profiler.record_function(name)
 
 
 def load_events(trace):
@@ -180,7 +205,6 @@ def profile_marginal(run, frames=(1, 5), device=True, pool_rows=None):
     window), frame_idle_share (of frame_ms)}. The trace is written to a
     temporary directory and removed."""
     import time
-    import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device
                                      else [])
@@ -275,3 +299,56 @@ def bucket(cat, op, kernel, rows=0, pool_rows=None):
             or op in _COPY_OPS:
         return "layout_copies"
     return "other"
+
+
+def stage_device_ms(trace, window=None):
+    """Device time of each wave stage of an instrumented call, from the
+    stage marks (the pt_stage_* kernels) among the device events that
+    start inside the record_function `window` (all when None). Each
+    device event belongs to the latest mark that started before it; the
+    `end` mark closes a wave, so what runs from there to the next mark
+    (and before the first mark) belongs to no stage.
+
+    Returns {"stages": {stage: ms} for each stage marked, "none_ms",
+    "marks_ms" (the marks' own kernels), "marks" (their count),
+    "wave_starts" (us, the start of each `respawn` mark), "wave_ms" (each
+    wave's device ms, from its `respawn` mark to its `end` mark)}."""
+    events = load_events(trace)
+    w0, w1 = _span(events, window)
+    dev = sorted(((e["ts"], not _is_mark(e["name"]), e) for e in events
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
+                  and w0 <= e["ts"] < w1), key=lambda x: x[:2])
+    stages = collections.Counter()
+    none_us = marks_us = 0.0
+    n_marks = 0
+    starts, wave_us = [], []
+    stage = None
+    for ts, not_mark, e in dev:
+        dur = e.get("dur", 0)
+        if not not_mark:
+            stage = e["name"][len(MARK_PREFIX):]
+            marks_us += dur
+            n_marks += 1
+            if stage == "respawn":
+                starts.append(ts)
+                wave_us.append(0.0)
+            if stage == "end":
+                stage = None
+            else:
+                stages[stage] += 0.0
+            continue
+        if stage is None:
+            none_us += dur
+        else:
+            stages[stage] += dur
+            if wave_us:
+                wave_us[-1] += dur
+    return {"stages": {k: us / 1e3 for k, us in stages.items()},
+            "none_ms": none_us / 1e3, "marks_ms": marks_us / 1e3,
+            "marks": n_marks, "wave_starts": starts,
+            "wave_ms": [us / 1e3 for us in wave_us]}
+
+
+def _is_mark(name):
+    return name.startswith(MARK_PREFIX) and \
+        name[len(MARK_PREFIX):] in STAGES

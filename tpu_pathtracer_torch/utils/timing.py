@@ -44,22 +44,29 @@ class RateMeter:
     """Counts frames and camera samples and prints 'time, frames, ms/frame,
     FPS, Mpaths/s' at most once per interval (the reference's stats line,
     src/main.cpp:204-209, plus paths per second; bounce and shadow rays are
-    not counted here)."""
+    not counted here). A report first synchronizes `device`, once a
+    report and not once a tick, so its time covers the frames the device
+    has finished, not only those the host has queued: ms/frame is the
+    device's rate."""
 
-    def __init__(self, interval=1.0):
+    def __init__(self, device, interval=1.0):
+        self.device = torch.device(device)
         self.interval = interval
         self.timer = Timer()
         self.last_report = 0.0
         self.frames = 0
         self.rays = 0
 
-    def tick(self, rays_this_frame, out=print):
-        self.frames += 1
-        self.rays += int(rays_this_frame)
+    def tick(self, paths, out=print, frames=1):
+        """Count `frames` frames (one call's) and their `paths` camera
+        samples; report when an interval has passed."""
+        self.frames += int(frames)
+        self.rays += int(paths)
+        if self.timer.elapsed() - self.last_report < self.interval:
+            return
+        synchronize(self.device)
         el = self.timer.elapsed()
-        if el - self.last_report >= self.interval:
-            fps = self.frames / el
-            out("time %.1fs, frames %d, %.2f ms/frame, %.1f FPS, %.2f Mpaths/s"
-                % (el, self.frames, 1000.0 * el / self.frames, fps,
-                   self.rays / el / 1e6))
-            self.last_report = el
+        out("time %.1fs, frames %d, %.2f ms/frame, %.1f FPS, %.2f Mpaths/s"
+            % (el, self.frames, 1000.0 * el / self.frames, self.frames / el,
+               self.rays / el / 1e6))
+        self.last_report = el

@@ -101,7 +101,10 @@ back to the CPU. Phases, each fatal on failure:
    (1, 3) (2 spp) minus the undoubled one, the sets in turns (none, each
    stage, each stage backwards, none), then every doubled image of 3 spp
    held to the undoubled one bit for bit under torch's deterministic
-   algorithms;
+   algorithms; (9g) the viewer's image kernel (csrc/image.cu, one launch
+   a viewer step, counted in 9a) at 960x540 with a 2x upscale and at
+   1920x1080 without: the plain version's bytes, the bare launch and the
+   plain version timed in turns beside the byte bound;
 10. the regen frame as one device program (tracer/regen.py: fixed-width
    waves with device-side counts, each captured once as a CUDA graph and
    replayed; phases 4-9 above already run this way): (10a) on TestObj and
@@ -1001,9 +1004,11 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
     import shutil
     import tempfile
     from tpu_pathtracer_torch.core.image import read_ppm
+    from tpu_pathtracer_torch.ops import image as image_ops
     from tpu_pathtracer_torch.scene import demo
-    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.tracer.renderer import Renderer, lane_tables
     from tpu_pathtracer_torch.tracer.regen import DUP_STAGES
+    from tpu_pathtracer_torch.utils.timing import cuda_ms
     from tpu_pathtracer_torch.tools import (
         interactive, probe_viewer, showcase_1080p, gallery, profile_frame)
     from tpu_pathtracer_torch.tools.render import _save_image
@@ -1026,6 +1031,7 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
         sess.step([" "])                            # and a preview
         torch.cuda.synchronize()
         zero_counts()
+        image_launches = image_ops.LAUNCHES["unswizzle_upscale"]
         times = {"preview": [], "full": []}
         for events, dt in viewer_script(interactive.KEYS,
                                         interactive.ENV_KEYS):
@@ -1035,6 +1041,10 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
             assert img.shape == (VH, VW, 3) and img.dtype == np.uint8
             clock[0] += dt
         viewer_launches = read_counts()
+        viewer_launches["unswizzle_upscale"] = \
+            image_ops.LAUNCHES["unswizzle_upscale"] - image_launches
+        assert viewer_launches["unswizzle_upscale"] == sum(
+            map(len, times.values())), "not one image launch a step"
         assert sess.step(["q"]) is None
         for k in ("traverse_closest", "traverse_anyhit", "shade",
                   "fetch_attributes", "env_tex_merged"):
@@ -1180,6 +1190,52 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
         rec["dup_prices"] = {"frames": [1, 3], "stages": prices,
                              "s": time.perf_counter() - t0}
         del pr
+        torch.cuda.empty_cache()
+
+        # ---- 9g. the viewer's image kernel ----
+        # kernel ms: 100 bare launches replayed as one CUDA graph, so the
+        # host's launch rate does not set the time of a few-us kernel
+        rec["image_kernel"] = {}
+        rng = np.random.default_rng(9)
+        for (iw, ih), rep in (((VW // 2, VH // 2), 2), ((VW, VH), 1)):
+            px, py = (torch.from_numpy(t).to(dev)
+                      for t in lane_tables(iw, ih))
+            rgb = torch.from_numpy(rng.integers(0, 256, (iw * ih, 3),
+                                                dtype=np.uint8)).to(dev)
+            want = image_ops.unswizzle_upscale_plain(rgb, px, py, iw, ih,
+                                                     rep)
+            fn = image_ops.launch_fn(rgb, px, py, iw, ih, rep)
+            assert torch.equal(fn(), want), ("image kernel != plain", iw)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                gfn = image_ops.launch_fn(rgb, px, py, iw, ih, rep)
+                for _ in range(100):
+                    gfn()
+            kernel_ms, plain_ms = [], []
+            for which in ("plain", "kernel", "kernel", "plain"):
+                if which == "kernel":
+                    kernel_ms.append(cuda_ms(graph.replay, 10) / 100)
+                else:
+                    plain_ms.append(cuda_ms(
+                        lambda: image_ops.unswizzle_upscale_plain(
+                            rgb, px, py, iw, ih, rep), 20))
+            assert torch.equal(gfn(), want), ("graph != plain", iw)
+            eager_ms = cuda_ms(fn, 200)
+            n_bytes = image_ops.io_bytes(iw * ih, rep)
+            bound = n_bytes / HBM_BYTES_PER_S * 1e3
+            key = "%dx%d_s%d" % (iw, ih, rep)
+            rec["image_kernel"][key] = {
+                "kernel_ms": kernel_ms, "eager_launch_ms": eager_ms,
+                "plain_ms": plain_ms, "bytes": n_bytes, "bound_ms": bound,
+                "bound_share": bound / min(kernel_ms)}
+            log("  9g image kernel %s: = plain version; kernel %s ms "
+                "(eager launches %.4f ms), plain %s ms, bound %.4f ms (%d "
+                "B), kernel at %.1f%% of it"
+                % (key, ["%.4f" % x for x in kernel_ms], eager_ms,
+                   ["%.3f" % x for x in plain_ms], bound, n_bytes,
+                   100 * bound / min(kernel_ms)))
+            del px, py, rgb, want, fn, gfn, graph
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

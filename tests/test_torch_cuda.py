@@ -1,6 +1,6 @@
 """The CUDA kernels (traversal, step-counting traversal, row gather and
-scatter, the shade kernel, the surface fetches) against their plain
-PyTorch versions, on the card, and the render
+scatter, the shade kernel, the surface fetches, the viewer's image)
+against their plain PyTorch versions, on the card, and the render
 paths that launch them (media, BSSRDF, bounce, chunks and shards, the regen
 orders, the dup_stage hook, the device tonemap and the viewer's session,
 the replayed regen and bounce frames against the eager ones, the stage
@@ -22,7 +22,8 @@ output on every lane that is not a miss (a miss lane's NaN normal gives
 values no caller reads), and renders with it equal renders with the plain
 shade bit for bit under deterministic algorithms. The surface fetch
 kernels equal their plain versions bit for bit in every output on every
-lane, a NaN equal to a NaN, and so do renders with them.
+lane, a NaN equal to a NaN, and so do renders with them. The image
+kernel gives the plain host path's bytes (pure data movement).
 """
 import functools
 
@@ -36,6 +37,7 @@ from tpu_pathtracer_torch.ops import traverse_packet as ops
 from tpu_pathtracer_torch.ops import dma_rows
 from tpu_pathtracer_torch.ops import shade as shade_ops
 from tpu_pathtracer_torch.ops import surface_fetch
+from tpu_pathtracer_torch.ops import image as image_ops
 from torch_shade_inputs import mixed_inputs, kernel_args, plain_shade
 from torch_fetch_inputs import (
     kernel_inputs, run_plain, differing_lanes, plain_fetch)
@@ -641,7 +643,8 @@ def test_dup_stages_keep_the_image_bits_on_card(device):
 def test_viewer_session_on_card(device, tmp_path):
     """A scripted viewer session at 64x64 on the card: the previews and the
     converging steps are Renderer.render_frames of the same cameras (bit
-    for bit under the deterministic algorithms), launching both traversal
+    for bit under the deterministic algorithms) through the plain host
+    path's tonemap, un-swizzle and upscale, launching both traversal
     kernels."""
     from tpu_pathtracer_torch.tools import interactive as viewer
     W = 64
@@ -657,23 +660,193 @@ def test_viewer_session_on_card(device, tmp_path):
         before = dict(ops.LAUNCHES)
         img = s.step(["LEFT"])
         assert s.kind == "preview"
-        want = lo.accum_to_image(
-            lo.render_frames(lo.zeros_accum(), s.camera, 1, 1), 1)
-        np.testing.assert_array_equal(img, want.repeat(2, 0).repeat(2, 1))
+        want = _host_image(
+            lo.render_frames(lo.zeros_accum(), s.camera, 1, 1), 1, W // 2,
+            W // 2, 2)
+        np.testing.assert_array_equal(img, want)
         t[0] = 1.0
         acc = r.zeros_accum()
         for _ in range(2):
             img = s.step([])
             assert s.kind == "full"
             acc = r.render_frames(acc, s.camera, s.frame - 1, 2)
-            np.testing.assert_array_equal(img,
-                                          r.accum_to_image(acc, s.frame))
+            np.testing.assert_array_equal(
+                img, _host_image(acc, s.frame, W, W, 1))
         for k in ("traverse_closest", "traverse_anyhit"):
             assert ops.LAUNCHES[k] > before[k], k
     finally:
         torch.use_deterministic_algorithms(False)
     s.close()
     assert (tmp_path / "output500.ppm").exists()
+
+
+# ---- the viewer's image on the card (ops/image.py, csrc/image.cu) ----
+
+def _host_image(acc, frames, width, height, repeat):
+    """The plain host path of Renderer.accum_to_image: the device tonemap's
+    uint8 lanes copied to the host, scattered through lane_tables in
+    numpy, then np.repeat."""
+    from tpu_pathtracer_torch.tracer.renderer import lane_tables
+    x = torch.clamp(acc[:width * height] / float(max(frames, 1)), 0.0, 1.0)
+    u8 = (torch.pow(x, 1.0 / 2.2) * 255.0 + 0.5).to(torch.uint8)
+    px, py = lane_tables(width, height)
+    img = np.zeros((height, width, 3), np.uint8)
+    img[py, px] = u8.cpu().numpy()
+    return img.repeat(repeat, 0).repeat(repeat, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _image_renderer(W, H):
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    fb, mats, envmap, texture = demo.testobj_scene(cache_dir=None)
+    return Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                    height=H, device=torch.device("cuda"))
+
+
+def _image_lanes(W, H, seed):
+    """(rgb [n,3] uint8, lane_px, lane_py) on the card."""
+    from tpu_pathtracer_torch.tracer.renderer import lane_tables
+    g = np.random.default_rng(seed)
+    rgb = torch.from_numpy(g.integers(0, 256, (W * H, 3), dtype=np.uint8))
+    px, py = lane_tables(W, H)
+    return tuple(t.cuda() for t in (rgb, torch.from_numpy(px),
+                                    torch.from_numpy(py)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [1, 6])
+@pytest.mark.parametrize("size,repeat", [
+    ((64, 64), 1), ((64, 64), 2), ((64, 64), 3), ((960, 540), 1),
+    ((960, 540), 2), ((1920, 1080), 1), ((1920, 1080), 2)])
+def test_image_kernel_equals_the_host_path_on_card(device, size, repeat,
+                                                   frames):
+    """Renderer.accum_to_image of a CUDA accumulation through the kernel:
+    the plain host path's bytes, bit for bit, and the plain version's on
+    the card; one launch a call."""
+    W, H = size
+    r = _image_renderer(W, H)
+    g = np.random.default_rng(frames * 7 + repeat)
+    acc = torch.from_numpy((g.random((W * H, 3)) * 1.3 * frames).astype(
+        np.float32)).to(device)
+    acc[:50] = 0.0
+    acc[50:60] = 10.0 * frames
+    before = image_ops.LAUNCHES["unswizzle_upscale"]
+    img = r.accum_to_image(acc, frames, repeat=repeat)
+    assert image_ops.LAUNCHES["unswizzle_upscale"] == before + 1
+    assert img.dtype == np.uint8 and img.shape == (H * repeat, W * repeat,
+                                                   3)
+    np.testing.assert_array_equal(img, _host_image(acc, frames, W, H,
+                                                   repeat))
+    rgb, px, py = _image_lanes(W, H, frames + repeat)
+    got = image_ops.unswizzle_upscale(rgb, px, py, W, H, repeat)
+    assert got.device.type == "cuda"
+    assert torch.equal(got, image_ops.unswizzle_upscale_plain(
+        rgb, px, py, W, H, repeat))
+
+
+@pytest.mark.cuda
+def test_image_bare_launch_equals_the_wrapper_and_counts_nothing(device):
+    rgb, px, py = _image_lanes(96, 40, 3)
+    want = image_ops.unswizzle_upscale_cuda(rgb, px, py, 96, 40, 2)
+    before = dict(image_ops.LAUNCHES)
+    launch = image_ops.launch_fn(rgb, px, py, 96, 40, 2)
+    for _ in range(2):
+        out = launch()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert image_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_image_refused_calls_raise(device, monkeypatch):
+    """A wrong dtype or shape, a table on the host: ValueError before any
+    launch; sizes the C entry does not take: -1 from it; a nonzero code
+    from the C entry: RuntimeError. Nothing is counted."""
+    rgb, px, py = _image_lanes(64, 64, 0)
+    before = dict(image_ops.LAUNCHES)
+    for call, match in (
+            (lambda: image_ops.unswizzle_upscale(rgb.int(), px, py, 64, 64),
+             "dtype"),
+            (lambda: image_ops.unswizzle_upscale(rgb, px.cpu(), py, 64, 64),
+             "cpu"),
+            (lambda: image_ops.unswizzle_upscale(rgb, px, py, 64, 32),
+             "shape"),
+            (lambda: image_ops.unswizzle_upscale(rgb, px, py, 64, 64, 0),
+             "repeat")):
+        with pytest.raises(ValueError, match=match):
+            call()
+    fn = image_ops._kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((64, 64, 3), dtype=torch.uint8, device=device)
+    ptrs = (rgb.data_ptr(), px.data_ptr(), py.data_ptr())
+    assert fn(64 * 64, *ptrs, 64, 32, 1, out.data_ptr(), stream) == -1
+    assert fn(64 * 64, *ptrs, 64, 64, 0, out.data_ptr(), stream) == -1
+    monkeypatch.setattr(image_ops, "_kernel", lambda: (lambda *a: 7))
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        image_ops.unswizzle_upscale(rgb, px, py, 64, 64, 2)
+    assert image_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_viewer_steps_launch_the_image_kernel_once_and_keep_their_images(
+        device, tmp_path):
+    """One kernel launch a preview step and one a full step; an image that
+    a step returned is unchanged after the next steps (each is its own
+    pinned host memory)."""
+    from tpu_pathtracer_torch.tools import interactive as viewer
+    W = 64
+    r = _regen_renderer(device, W)
+    lo = viewer.preview_renderer(r, demo.testobj_scene(cache_dir=None), 2)
+    t = [0.0]
+    s = viewer.ViewerSession(r, demo.default_camera(W, W), lo, batch=2,
+                             cam_path=str(tmp_path / "v.cam"),
+                             out_dir=str(tmp_path), clock=lambda: t[0])
+    kept = []
+    for events, kind in ((["LEFT"], "preview"), (["w"], "preview"),
+                         ([], "full"), ([], "full")):
+        t[0] = 0.0 if kind == "preview" else t[0] + 1.0
+        before = image_ops.LAUNCHES["unswizzle_upscale"]
+        img = s.step(events)
+        assert s.kind == kind
+        assert image_ops.LAUNCHES["unswizzle_upscale"] == before + 1
+        assert img.shape == (W, W, 3) and img.dtype == np.uint8
+        kept.append((img, img.copy()))
+    for img, copy in kept:
+        np.testing.assert_array_equal(img, copy)
+    assert not np.array_equal(kept[0][0], kept[1][0])
+
+
+@pytest.mark.cuda
+def test_viewer_step_copies_its_image_once_into_pinned_memory(device,
+                                                              tmp_path):
+    """A preview step and a full step each copy one full-size image from
+    the device, into pinned memory: no preview-size copy, nothing into
+    pageable memory (the device traces' memcpy events)."""
+    from tpu_pathtracer_torch.tools import interactive as viewer
+    W = 64
+    r = _regen_renderer(device, W)
+    lo = viewer.preview_renderer(r, demo.testobj_scene(cache_dir=None), 2)
+    t = [0.0]
+    s = viewer.ViewerSession(r, demo.default_camera(W, W), lo, batch=2,
+                             cam_path=str(tmp_path / "v.cam"),
+                             out_dir=str(tmp_path), clock=lambda: t[0])
+    s.step(["LEFT"])                     # captures the preview's graphs
+    t[0] = 1.0
+    s.step([])                           # and the full step's
+    for events, kind, now in ((["RIGHT"], "preview", 2.0),
+                              ([], "full", 3.0)):
+        t[0] = now
+        copies = _kernel_events(lambda: s.step(events), tmp_path,
+                                "gpu_memcpy")
+        assert s.kind == kind
+        dtoh = [e for e in copies if e["name"].startswith("Memcpy DtoH")]
+        sizes = [e["args"].get("bytes") for e in dtoh]
+        image = [e for e in dtoh if e["args"].get("bytes") == W * W * 3]
+        assert len(image) == 1, (kind, sizes)
+        assert "Pinned" in image[0]["name"], image[0]["name"]
+        assert W * W * 3 // 4 not in sizes, (kind, sizes)
+        assert not any("Pageable" in e["name"] for e in dtoh), \
+            [e["name"] for e in dtoh]
 
 
 # ---- the regen frame as one device program: the device prefix, the
@@ -773,8 +946,9 @@ def test_graph_frame_equals_no_graphs_bit_for_bit(device, case):
     assert captured is not None, "no wave was captured"
 
 
-def _kernel_events(fn, tmp_path):
-    """The device kernels of fn() under torch.profiler, in start order."""
+def _kernel_events(fn, tmp_path, cat="kernel"):
+    """The device kernels (or the events of another device category,
+    `cat`) of fn() under torch.profiler, in start order."""
     import json
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -786,7 +960,7 @@ def _kernel_events(fn, tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     return sorted((e for e in events if e.get("ph") == "X"
-                   and e.get("cat") == "kernel"), key=lambda e: e["ts"])
+                   and e.get("cat") == cat), key=lambda e: e["ts"])
 
 
 @pytest.mark.cuda

@@ -31,7 +31,7 @@ def test_port_has_the_slice_modules():
               "materials.bsdf", "tracer.traverse", "tracer.envsample",
               "tracer.wavefront", "tracer.renderer", "tracer.regen",
               "ops.traverse_packet", "ops.dma_rows", "ops.checks",
-              "ops.shade", "ops.surface_fetch", "ops.marks",
+              "ops.shade", "ops.surface_fetch", "ops.marks", "ops.image",
               "accel", "accel.bvh", "accel.flatten", "accel.cache",
               "accel.native_build", "tools.probe_steps", "tools.probe_dma",
               "utils.cuda_build", "convert", "scene.plyloader", "bssrdf",

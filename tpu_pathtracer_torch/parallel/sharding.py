@@ -104,8 +104,8 @@ class ShardedRenderer:
         return (out, sum(int(w) for _, w, _ in outs),
                 sum(float(r) for _, _, r in outs))
 
-    def accum_to_image(self, accum, frame_count):
-        return self.base.accum_to_image(accum, frame_count)
+    def accum_to_image(self, accum, frame_count, repeat=1):
+        return self.base.accum_to_image(accum, frame_count, repeat)
 
     def accum_to_buffer(self, accum):
         return self.base.accum_to_buffer(accum)

@@ -18,16 +18,17 @@ shift-drag rotates the environment map.
 Any camera change resets the accumulation, like the reference's
 buffer_reset. For 0.25 s after a change the view renders a 1-spp preview
 at 1/div of the resolution (a second Renderer on the first one's scene
-tensors, `base_scene`), upscaled by pixel repetition; then it converges
-at full resolution, `--batch` samples a step. Snapshots output5.ppm and
-output50.ppm are written after 5 s and 50 s, output500.ppm on exit, and a
-stats line once a second.
+tensors, `base_scene`), upscaled by pixel repetition on the device; then
+it converges at full resolution, `--batch` samples a step. Snapshots
+output5.ppm and output50.ppm are written after 5 s and 50 s,
+output500.ppm on exit, and a stats line once a second.
 
 The loop is a `ViewerSession`: it takes one step's key and mouse events
 and returns that step's image, on an injected clock, so tests and
 chip_smoke.py drive it without a terminal; `main()` alone owns the
-terminal. Each step reads back only the tonemapped uint8 image
-(Renderer.accum_to_image tonemaps on the device).
+terminal. Each step reads back only the finished uint8 image, in one
+copy (Renderer.accum_to_image tonemaps, un-swizzles and repeats the
+preview's pixels on the device).
 
     python -m tpu_pathtracer_torch.tools.interactive [--demo default]
         [--scene desc.json] [--size 128] [--batch 4] [--preview-div 2]
@@ -292,10 +293,8 @@ class ViewerSession:
             self.icam.set_resolution(r.width, r.height)
             with span("pt.viewer.preview"):
                 acc = lo.render_frames(lo.zeros_accum(), self.camera, 1, 1)
-            img = lo.accum_to_image(acc, 1)
-            with span("pt.viewer.upscale"):
-                img = img.repeat(r.height // lo.height, axis=0).repeat(
-                    r.width // lo.width, axis=1)
+            # preview_renderer guarantees one exact factor in both axes
+            img = lo.accum_to_image(acc, 1, repeat=r.height // lo.height)
             self.kind = "preview"
         else:
             self.camera = self.icam.build_render_camera()

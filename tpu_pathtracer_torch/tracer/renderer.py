@@ -21,6 +21,7 @@ from ..scene.config import SceneDesc, materials_to_arrays, MAT_SUBSURFACE
 from ..scene.camera import RenderCamera
 from ..scene.texture import make_quad_texture
 from ..convert import to_device
+from ..ops import image as image_ops
 from ..utils.profiling import span
 from . import device_loop
 from .traverse import pack_stream
@@ -370,28 +371,43 @@ class Renderer:
             img[self._lane_py, self._lane_px] = a
         return img
 
-    def accum_to_image(self, accum, frame_count):
-        """Tonemap the lane-ordered accumulation into [H,W,3] uint8.
+    def accum_to_image(self, accum, frame_count, repeat=1):
+        """Tonemap the lane-ordered accumulation into [H*repeat, W*repeat,
+        3] uint8, each pixel repeated into its repeat x repeat block.
 
         As in the JAX package, the type decides where: a torch tensor is
-        clamped, gamma-corrected and quantised in f32 on its own device and
-        only the uint8 comes back (a quarter of the f32 readback, which the
-        viewer pays every frame); a numpy array takes the host f64
-        core.image.tonemap. The two differ by at most one uint8 step (f32
-        against f64 pow before the rounding)."""
+        clamped, gamma-corrected and quantised in f32 on its own device,
+        un-swizzled and repeated there (ops/image.py: the kernel on the
+        card, its plain version on the CPU), and a CUDA device's image
+        comes back in one copy into fresh pinned memory; a numpy array
+        takes the host f64 core.image.tonemap. The two differ by at most
+        one uint8 step (f32 against f64 pow before the rounding). The
+        array returned is the caller's own: no later call writes it."""
         from ..core.image import tonemap
+        repeat = int(repeat)
+        if repeat < 1:
+            raise ValueError("repeat must be at least 1, not %d" % repeat)
         if not isinstance(accum, torch.Tensor):
-            return tonemap(self.accum_to_buffer(accum), frame_count)
+            img = tonemap(self.accum_to_buffer(accum), frame_count)
+            return img.repeat(repeat, 0).repeat(repeat, 1) if repeat > 1 \
+                else img
         n = self.width * self.height
-        with span("pt.image.copy"):
+        with span("pt.image.unswizzle"):
             x = torch.clamp(accum[:n] / float(max(int(frame_count), 1)),
                             0.0, 1.0)
             u8 = (torch.pow(x, 1.0 / 2.2) * 255.0 + 0.5).to(torch.uint8)
-            u8 = u8.cpu().numpy()
-        with span("pt.image.unswizzle"):
-            img = np.zeros((self.height, self.width, 3), np.uint8)
-            img[self._lane_py, self._lane_px] = u8
-        return img
+            img = image_ops.unswizzle_upscale(
+                u8, self.scene["lane_px"][:n].to(u8.device),
+                self.scene["lane_py"][:n].to(u8.device), self.width,
+                self.height, repeat)
+        with span("pt.image.copy"):
+            if img.device.type == "cuda":
+                host = torch.empty(img.shape, dtype=torch.uint8,
+                                   pin_memory=True)
+                host.copy_(img, non_blocking=True)
+                torch.cuda.current_stream(img.device).synchronize()
+                img = host
+            return img.numpy()
 
 
 def scene_parts_from_desc(desc: SceneDesc, base_dir="", cache_dir=None):

@@ -20,8 +20,11 @@ its gathers are not split into pool-width and table ones.
 The port's own spans and marks, which land in the same trace on the
 profiler's one clock (nothing is recorded while no profiler runs):
 - `span(name)`: a host span, a record_function while torch.profiler
-  records: `pt.viewer.preview`, `pt.image.copy`, `pt.image.unswizzle`,
-  `pt.viewer.upscale` (tools/interactive.py, tracer/renderer.py);
+  records: `pt.viewer.preview` (tools/interactive.py: the preview's
+  render); `pt.image.unswizzle` (Renderer.accum_to_image: the tonemap and
+  the un-swizzle, on the device for a tensor, with the preview's pixel
+  repetition; Renderer.accum_to_buffer: the host scatter); `pt.image.copy`
+  (the copy to the host and its wait) (tracer/renderer.py);
 - the stage marks of a regen wave's with_stats call (ops/marks.py: on a
   CUDA device the empty kernel `pt_stage_<stage>` captured into the
   wave's graph, on the CPU a zero-length record_function of that name):

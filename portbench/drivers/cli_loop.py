@@ -9,9 +9,14 @@ reference.
 frame_ms = the window's time over the frames of the whole calls it ran;
 the window closes with a synchronize after the call that crossed
 --seconds. With --trace 1 one more call (with the program's counters on)
-runs under the profiler into the same accumulation."""
+runs under the profiler into the same accumulation, profiled anew (at
+most TRACE_TRIES calls) while its trace lacks some of the waves the
+program counted (_stages.marks_whole); the run's `traced`
+carries what that call counted (the waves, the rays, and every counter the
+program publishes, program.counters) beside its trace."""
 from __future__ import annotations
 
+import sys
 import time
 
 import numpy as np
@@ -19,11 +24,14 @@ import torch
 
 from portbench import check, program, scenes
 from portbench.camera import Orbit
+from portbench.metrics import _stages
 from portbench.reference import render as ref
 
 
 # the reference's paths a call, a bound on its memory
 PATHS_PER_CALL = 1 << 18
+# traced calls at most, while the profiler loses records of the call
+TRACE_TRIES = 6
 
 
 def plan(traffic, config, seed):
@@ -72,13 +80,21 @@ def run(ctx):
 
     traced = {}
     if ctx.trace:
-        events, (accum, _, rays) = ctx.profile(
-            lambda: r.render_frames(accum, rc, frame, fpc, with_stats=True))
-        frame += fpc
+        for _ in range(TRACE_TRIES):
+            events, (accum, _, rays) = ctx.profile(
+                lambda: r.render_frames(accum, rc, frame, fpc,
+                                        with_stats=True))
+            frame += fpc
+            waves = program.regen_waves(r, True)
+            if _stages.marks_whole(events, waves):
+                break
+            print("cli_loop: the profiler lost records of a traced call; "
+                  "profiling the next", file=sys.stderr)
         traced = {"loop": "render", "events": events,
                   "window": "portbench_window", "frames": fpc,
-                  "waves": program.regen_waves(r, True), "rays": rays,
-                  "stream_rows": program.stream_rows(r)}
+                  "waves": waves, "rays": rays,
+                  "stream_rows": program.stream_rows(r),
+                  "counters": program.counters(r)}
     peak = torch.cuda.max_memory_allocated(ctx.device) \
         if ctx.device.type == "cuda" else 0
 

@@ -1,20 +1,20 @@
 """The stage marks of the program's instrumented calls, as the per-layer
-readers read them. `STAGES`, `MARK_PREFIX`, `stage_device_ms` and
-`_is_mark` are frozen copies of `tpu_pathtracer_torch/ops/marks.py` and
-`utils/profiling.py` as this benchmark first read them, unchanged but for
-this docstring (the trace arithmetic they use is `_trace.py`'s); the rest
-is the benchmark's own. A trace of a program without the
-marks or spans gives None."""
+readers read them. `MARK_PREFIX` and `stage_device_ms` are frozen copies
+of `tpu_pathtracer_torch/ops/marks.py` and `utils/profiling.py` as this
+benchmark first read them, unchanged but for this docstring (the trace
+arithmetic they use is `_trace.py`'s); `_is_mark` takes every device event
+named `pt_stage_<stage>` as the mark of `<stage>`, so a stage the program
+adds needs only its reader (`stage_ms.<stage>.py`); the rest is the
+benchmark's own. The program's regen wave marks, in wave order: respawn,
+ext_trace, surface, material, shade, bssrdf (a scene with a subsurface
+material), sample_env, shadow_trace, permute, scatter, end. A trace of a
+program without the marks or spans gives None."""
 from __future__ import annotations
 
 import collections
 
 from portbench.metrics._trace import DEVICE_CATS, _span, load_events
 
-# the stages of a regen wave in wave order, each running from its mark to
-# the next; `end` closes the wave (tracer/regen.py: regen_wave)
-STAGES = ("respawn", "ext_trace", "surface", "material", "shade", "bssrdf",
-          "sample_env", "shadow_trace", "permute", "scatter", "end")
 MARK_PREFIX = "pt_stage_"
 
 
@@ -67,20 +67,44 @@ def stage_device_ms(trace, window=None):
 
 
 def _is_mark(name):
-    return name.startswith(MARK_PREFIX) and \
-        name[len(MARK_PREFIX):] in STAGES
+    return name.startswith(MARK_PREFIX)
 
 
 # ---- the benchmark's own ----
 
 def render_stages(run):
-    """stage_device_ms of a traced render run's window, or None where the
-    run is not a render or its trace holds no stage mark."""
+    """stage_device_ms of a traced render run over every device event of
+    its trace, or None where the run is not a render or its trace holds no
+    stage mark. The profiled region holds the traced call and one warm-up
+    op before it, which falls before the first mark (no stage). The host's
+    window is not used here: on the H100 the profiler's device timestamps
+    stray from the host's clock by up to some milliseconds either way, so
+    a wave's marks at either end of the call can fall outside it."""
     if run.get("loop") != "render" or not run.get("events") \
             or not run.get("frames"):
         return None
-    got = stage_device_ms(run["events"], run["window"])
+    got = stage_device_ms(run["events"], None)
     return got if got["marks"] else None
+
+
+def marks_whole(events, waves):
+    """False where the trace holds stage marks but not one `respawn` and
+    one `end` mark for each wave the program counted (`waves`, {width:
+    count}), or a stage marked a number of times that is no whole multiple
+    of the waves: the profiler lost device records (on the H100 runs of
+    some tens to some thousands of a traced call's records, in one call of
+    three to one of five), so every device reading of that trace would
+    read short. True for a trace without marks, which no second call can
+    mend."""
+    n = collections.Counter(e["name"] for e in events
+                            if e.get("ph") == "X"
+                            and e.get("cat") in DEVICE_CATS
+                            and e["name"].startswith(MARK_PREFIX))
+    if not n:
+        return True
+    want = sum(int(c) for c in (waves or {}).values())
+    return want > 0 and n[MARK_PREFIX + "respawn"] == want \
+        == n[MARK_PREFIX + "end"] and all(c % want == 0 for c in n.values())
 
 
 def stage_ms(run, stage):

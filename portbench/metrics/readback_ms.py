@@ -1,8 +1,8 @@
 """readback_ms: host ms of the viewer step from the end of its preview
 render (synchronized) to its uint8 full-size image in host memory: the
-device tonemap, the uint8 readback, the host un-swizzle and the upscale
-(Renderer.accum_to_image and the step's pixel repetition); the mean over
-the traced run's drag steps. Moves drag_step_ms."""
+device tonemap, the un-swizzle and the pixel repetition up to the full
+size, and the uint8 readback (Renderer.accum_to_image and the step's
+image); the mean over the traced run's drag steps. Moves drag_step_ms."""
 
 
 def read(run):

@@ -90,6 +90,20 @@ def regen_waves(renderer, with_stats):
     return dict(renderer.regen_integrator(with_stats).last_waves)
 
 
+def counters(renderer):
+    """{name: number}: what the integrator of the renderer's last with_stats
+    call published in its `last_counters` mapping (device scalars read
+    back), looked up among the integrators the renderer has built (its
+    cache, most recently used last; a key's third item is with_stats), so
+    that nothing is built here; {} where no with_stats call ran or its
+    integrator publishes none."""
+    ran = [fn for key, fn in getattr(renderer, "_integrators", {}).items()
+           if key[2]]
+    got = getattr(ran[-1], "last_counters", None) if ran else None
+    return {str(k): v.item() if hasattr(v, "item") else v
+            for k, v in (got or {}).items()}
+
+
 def stream_rows(renderer):
     """Rows of the packed BVH stream the traversal reads."""
     return int(renderer.scene["packed"].shape[0])

@@ -9,14 +9,21 @@ own tree), the environment's top-k NEE distribution and its alias table,
 and the quad lookups (here plain bilinear reads of the images). The BSSRDF
 probe loop uses the sum-of-exponentials profile, as the program's default
 settings do; its photon-beam-diffusion table is not read on that path, so
-the reference does not build it.
+the reference does not build it. A material's homogeneous medium (a preset
+name or a [sigma_s, sigma_a, g] triple) fills the inside of a glass
+surface: a path enters it on a refraction into such a surface and leaves
+it on any refraction out, and on every bounce inside it samples a
+distance to scatter at before its surface hit (`medium_step`).
 
 A sample's random stream is the per-(frame, pixel) PCG stream of the
 upstream renderer: seeded from wang_hash(frame) + lane, four draws for the
 camera ray, then on every surface vertex six for the BSDF draw, fourteen
 for the BSSRDF probe loop in a scene with a subsurface material (drawn on
 every vertex, used on the lanes that refract into one), and two for the
-environment NEE. The same sample gives the same path, whatever wave or
+environment NEE. In a scene with media every bounce draws four more first,
+after the closest-hit trace, for the medium (drawn inside a medium or not),
+and a path that scatters in the medium draws the surface's numbers too,
+unused. The same sample gives the same path, whatever wave or
 lane the program traces it in.
 
 `dtype` is the precision every float is computed in: float32 for the
@@ -49,6 +56,18 @@ MAT_DEFAULTS = {"refltype": "MAT_DIFF", "objcol": (1.0, 1.0, 1.0),
                 "kd": 1.0, "ks": 1.0, "etaT": 1.33, "useNormal": True,
                 "useTexture": False, "F0": (0.56, 0.57, 0.58),
                 "tangent": (0.0, 1.0, -1.0), "mfp": (1.0, 1.0, 1.0)}
+# the upstream's medium presets (src/scenes.txt:51-55): sigma_s, sigma_a
+# (per unit length, RGB) and the Henyey-Greenstein g
+MEDIA = {
+    "cloud": ((20.0, 20.0, 20.0), (5.0, 5.0, 5.0), 0.0),
+    "tea": ((0.040224 * 5, 0.045264 * 5, 0.051081 * 5),
+            (2.4288, 4.5757, 7.2127), 0.5),
+    "milk": ((4.5513 * 20, 5.8294 * 20, 7.136 * 20),
+             (0.0015333, 0.0046, 0.019933), -0.5),
+    "jade": ((45.0, 40.0, 50.0), (10.0, 5.0, 15.0), 0.2),
+    "skin": ((0.74 * 1000, 0.88 * 1000, 1.01 * 1000),
+             (0.032 * 500, 0.17 * 500, 0.48 * 500), 0.5),
+}
 SETTINGS = {"bounce_min": 2, "bounce_max": 16, "env_nee_topk": 16384,
             "bssrdf_probes": 3}
 
@@ -451,10 +470,25 @@ def env_distribution(env, topk):
             alias, sel)
 
 
+def medium_of(desc):
+    """(sigma_s, sigma_a, g) of a material's `medium`: a preset's name
+    (MEDIA) or the triple itself; None for no medium."""
+    if not desc:
+        return None
+    if isinstance(desc, str):
+        if desc not in MEDIA:
+            raise ValueError("no medium preset %r (presets: %s)"
+                             % (desc, ", ".join(sorted(MEDIA))))
+        return MEDIA[desc]
+    ss, sa, g = desc
+    return tuple(map(float, ss)), tuple(map(float, sa)), float(g)
+
+
 class Scene:
     """What the reference reads of a scene, on `device` in `dtype`: the
-    mesh's triangles, uv, normals and materials, the images, and the
-    derived tree and NEE distribution."""
+    mesh's triangles, uv, normals and materials, the materials' media
+    (`media`, by material id; `has_media`), the images, and the derived
+    tree and NEE distribution."""
 
     def __init__(self, mesh, materials, envmap, texture, device,
                  dtype=torch.float32, settings=None):
@@ -468,9 +502,18 @@ class Scene:
         self.mat_of = torch.as_tensor(mesh["material_ids"], device=device,
                                       dtype=torch.int64)
         recs = [dict(MAT_DEFAULTS, **m) for m in materials]
-        for r in recs:
-            if r.get("medium"):
-                raise NotImplementedError("the reference has no media")
+        media = [medium_of(r.get("medium")) for r in recs]
+        has = [md is not None for md in media]
+        self.has_media = any(has)
+        media = [md or ((0.0,) * 3, (0.0,) * 3, 0.0) for md in media]
+        self.media = {
+            "sigma_s": torch.tensor(np.asarray([md[0] for md in media],
+                                               np.float32), **f),
+            "sigma_a": torch.tensor(np.asarray([md[1] for md in media],
+                                               np.float32), **f),
+            "g": torch.tensor(np.asarray([md[2] for md in media],
+                                         np.float32), **f),
+            "has": torch.tensor(has, device=device)}
         self.mats = {}
         for key in MAT_DEFAULTS:
             vals = [r[key] for r in recs]
@@ -740,6 +783,62 @@ def bssrdf_scatter(scene, stream, hitpoint, normal2, m, mat_id, objcol):
     return res_point + RAY_MIN * nn, nd, mul * out_s[:, None], ok
 
 
+# ---- homogeneous media (src/reflection.cuh:152-197, HomogeneousMedium) ----
+
+def henyey_greenstein(u1, u2, g, d):
+    """A direction drawn from the Henyey-Greenstein phase function about
+    the propagation direction d:
+    p(cos) = (1 - g^2) / (4 pi (1 + g^2 - 2 g cos)^(3/2)), cos the cosine
+    to d, so that g > 0 scatters forward and g is the mean cosine. Its CDF
+    inverted at u1: cos = (1 + g^2 - ((1 - g^2) / (1 - g + 2 g u1))^2)
+    / (2 g), and the isotropic cos = 1 - 2 u1 where |g| < 1e-3; the azimuth
+    2 pi u2 in the frame make_basis(d)."""
+    iso = torch.abs(g) < 1e-3
+    gs = torch.where(iso, torch.ones_like(g), g)
+    frac = (1.0 - gs * gs) / (1.0 - gs + 2.0 * gs * u1)
+    cos = torch.where(iso, 1.0 - 2.0 * u1,
+                      (1.0 + gs * gs - frac * frac) / (2.0 * gs))
+    sin = torch.sqrt(torch.clamp_min(1.0 - cos * cos, 0.0))
+    phi = TWO_PI * u2
+    a, b = make_basis(d)
+    return normalize((sin * torch.cos(phi))[:, None] * a
+                     + (sin * torch.sin(phi))[:, None] * b
+                     + cos[:, None] * d)
+
+
+def medium_step(scene, u, o, d, mask, t_hit, medium):
+    """Each ray inside a medium (medium: the id of the material whose
+    medium the path is in, -1 for none) over the segment to its surface
+    hit at t_hit (RAY_MAX on a miss), with the draws u = (channel,
+    distance, two for the phase function): a distance drawn in one
+    channel's sigma_t, picked uniformly; where it is shorter than the hit
+    the ray scatters there, else it reaches the surface. The throughput
+    takes Tr * sigma_s / pdf or Tr / pdf, Tr the Beer-Lambert
+    transmittance over the distance travelled and pdf the mean over the
+    channels of sigma_t * Tr (scatter) or Tr (surface), 1 where under 1e-4.
+    Returns (o, d, mask, scattered): a scattered ray starts at its scatter
+    point in a Henyey-Greenstein direction; rays outside a medium are
+    unchanged."""
+    u1, u2, u3, u4 = u
+    inside = medium >= 0
+    at = torch.clamp_min(medium, 0)
+    sigma_s, g = scene.media["sigma_s"][at], scene.media["g"][at]
+    sigma_t = sigma_s + scene.media["sigma_a"][at]
+    ch = torch.clamp((u1 * 3.0).to(torch.int64), 0, 2)
+    dist = -torch.log(1.0 - u2) / torch.clamp_min(_pick(sigma_t, ch), 1e-12)
+    scat = inside & (dist < t_hit)
+    t = torch.clamp_max(torch.where(scat, dist, t_hit), RAY_MAX)
+    tr = torch.exp(-sigma_t * t[:, None])
+    density = torch.where(scat[:, None], sigma_t * tr, tr)
+    pdf = (density[:, 0] + density[:, 1] + density[:, 2]) / 3.0
+    pdf = torch.where(pdf < 1e-4, torch.ones_like(pdf), pdf)
+    w = torch.where(scat[:, None], tr * sigma_s, tr) / pdf[:, None]
+    mask = torch.where(inside[:, None], mask * w, mask)
+    o = torch.where(scat[:, None], o + t[:, None] * d, o)
+    d = torch.where(scat[:, None], henyey_greenstein(u3, u4, g, d), d)
+    return o, d, mask, scat
+
+
 # ---- paths ----
 
 def trace_paths(scene, cam, width, height, frame, lane):
@@ -768,20 +867,37 @@ def trace_paths(scene, cam, width, height, frame, lane):
     L = torch.zeros((R, 3), dtype=dt, device=dev)
     pdf_prev = torch.full((R,), -1.0, dtype=dt, device=dev)
     lbn = torch.full((R,), st["bounce_min"], dtype=torch.int64, device=dev)
-    idx = torch.arange(R, device=dev)          # the live paths
+    if scene.has_media:
+        medium = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    idx = torch.arange(R, device=dev)          # the live paths, ascending
     bounce = 0
     while idx.numel() and bounce < st["bounce_max"]:
         bounce += 1
         o_, d_, m_ = o[idx], d[idx], mask[idx]
         tri, t = scene.tree.trace(o_, d_, RAY_MIN, RAY_MAX)
         miss = tri < 0
+        scattered = None
+        if scene.has_media:
+            s = stream.sub(idx)
+            o_, d_, m_, scat = medium_step(scene, s.draw(4), o_, d_, m_, t,
+                                           medium[idx])
+            stream.put(idx, s)
+            miss = miss & ~scat
+            scattered = _scattered(scene, stream, idx[scat], lbn, bounce)
+            o[idx[scat]], d[idx[scat]], mask[idx[scat]] = \
+                o_[scat], d_[scat], m_[scat]
         if bool(miss.any()):
             mi = idx[miss]
             L[mi] += m_[miss] * scene.env_miss(d_[miss], pdf_prev[mi], rot[mi])
         hitl = ~miss
+        if scattered is not None:
+            hitl = hitl & ~scat
         idx, o_, d_, m_, tri, t = (x[hitl] for x in (idx, o_, d_, m_, tri, t))
         if not idx.numel():
-            break
+            if scattered is None:
+                break
+            idx = scattered
+            continue
         s = stream.sub(idx)
         hp = o_ + d_ * t[:, None]
         uv, sn, gn, mid = scene.surface(tri, hp)
@@ -794,7 +910,7 @@ def trace_paths(scene, cam, width, height, frame, lane):
         into = dot(n, d_) < 0.0
         nl = torch.where(into[:, None], n, -n)
         rad = m_ * mat["emit"]
-        (nd, mul, off, term, binc, _glass_r, ss_r, ss_n) = bsdf_draw(
+        (nd, mul, off, term, binc, glass_r, ss_r, ss_n) = bsdf_draw(
             s.draw(6), d_, n, nl, into, mat, objcol)
         no = hp + nl * (off * RAY_MIN)[:, None]
         if scene.has_sss:
@@ -846,6 +962,30 @@ def trace_paths(scene, cam, width, height, frame, lane):
         lbn[idx] = lb
         stream.put(idx, s)
         o[idx], d[idx], mask[idx] = no, nd, m_
+        if scene.has_media:
+            # in on a refraction into a glass surface with a medium, out on
+            # any refraction out
+            med = medium[idx]
+            med = torch.where(glass_r & into & scene.media["has"][mid], mid,
+                              med)
+            medium[idx] = torch.where(glass_r & ~into, -1, med)
         go = ~term & (bounce < lb)
         idx = idx[go]
+        if scattered is not None:
+            idx = torch.sort(torch.cat([idx, scattered])).values
     return L
+
+
+def _scattered(scene, stream, si, lbn, bounce):
+    """The paths si that scattered in their medium this bounce: they draw
+    the surface's numbers (the BSDF's, the BSSRDF loop's in a scene with a
+    subsurface material, the env NEE's) unused, and their bounce budget
+    grows by one, to at most bounce_max. Returns those of them that go
+    on."""
+    st = scene.settings
+    sub = stream.sub(si)
+    sub.draw(6 + (4 * st["bssrdf_probes"] + 2 if scene.has_sss else 0) + 2)
+    stream.put(si, sub)
+    lb = torch.clamp_max(lbn[si] + 1, st["bounce_max"])
+    lbn[si] = lb
+    return si[bounce < lb]

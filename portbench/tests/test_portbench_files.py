@@ -111,3 +111,40 @@ def test_cell_added_as_files_only(bench, tmp_path):
                    root=str(tmp_path))
     assert res["correct"] and set(res["check"]) == {"gap_p50"}
     assert res["attempted"] >= 1
+
+
+def test_media_cell_added_as_files_only(bench, tmp_path):
+    """A participating-media cell: a configuration file (organic_sss's
+    scene with the blob in glass filled with the jade medium), a limits
+    file and in-memory BENCHMARK.json entries, no edit of any file of
+    portbench/; the harness takes it and its comparison holds on the
+    CPU."""
+    from portbench.run import run_cell
+    for sub in ("configs", "traffic", "limits", "metrics"):
+        shutil.copytree(os.path.join(PB, sub), tmp_path / "portbench" / sub)
+    with open(os.path.join(PB, "configs", "organic_sss.json")) as f:
+        config = json.load(f)
+    config["name"] = "organic_media"
+    config["scene"]["materials"] = [
+        {"refltype": "MAT_DIFF", "useTexture": True},
+        {"refltype": "MAT_GLASS", "medium": "jade"}]
+    (tmp_path / "portbench" / "configs" / "organic_media.json").write_text(
+        json.dumps(config))
+    (tmp_path / "portbench" / "limits" / "organic_media_1080p.json") \
+        .write_text(json.dumps({"gap_p50": 1e-3, "far_share": 0.1}))
+    bench["configs"].append({"name": "organic_media", "source": "a test",
+                             "file": "portbench/configs/organic_media.json",
+                             "reduced": [], "why": "a test configuration"})
+    bench["workloads"].append({"name": "organic_media_1080p",
+                               "config": "organic_media",
+                               "traffic": "cli_32", "chips": 1,
+                               "why": "a test cell"})
+    scene = dict(config["scene"],
+                 mesh_args={"n_lat": 8, "n_lon": 16, "ground_div": 4})
+    ov = {"config": {"width": 64, "height": 64, "scene": scene},
+          "traffic": {"frames_per_call": 2, "check_pixels": 32}}
+    res = run_cell(bench, "organic_media_1080p", 2 ** 31 + 11, 0.1, 0,
+                   "cpu", ov, root=str(tmp_path))
+    assert res["correct"], res["check"]
+    assert set(res["check"]) == {"gap_p50", "far_share"}
+    assert res["attempted"] >= 2

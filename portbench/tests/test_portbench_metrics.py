@@ -2,7 +2,7 @@
 torch.profiler writes (a replayed graph's kernels carry no launching op)."""
 import pytest
 
-from pb_helpers import ROOT  # noqa: F401  (puts the checkout on sys.path)
+from pb_helpers import ROOT, bench, toy  # noqa: F401  (bench: a fixture)
 
 W = "portbench_window"
 
@@ -77,3 +77,128 @@ def test_span_readers():
     assert read("preview_render_ms", run) == pytest.approx(40.0)
     assert read("readback_ms", run) == pytest.approx(15.0)
     assert read("readback_ms", {"spans": {}}) is None
+
+
+def test_counters_reach_a_reader(tmp_path):
+    """A counter the program publishes reaches a reader file by its name
+    (run["counters"]); a missing counter, or a run without counters, gives
+    None."""
+    from portbench.run import read_metric
+    reader = tmp_path / "portbench" / "metrics" / "medium_scatters.py"
+    reader.parent.mkdir(parents=True)
+    reader.write_text("def read(run):\n"
+                      "    return run.get(\"counters\", {}).get("
+                      "\"medium.scatters\")\n")
+    run = {"loop": "render", "counters": {"medium.scatters": 4096}}
+    assert read_metric("medium_scatters", run, str(tmp_path)) == 4096
+    assert read_metric("medium_scatters", dict(run, counters={}),
+                       str(tmp_path)) is None
+    assert read_metric("medium_scatters", {}, str(tmp_path)) is None
+
+
+class _Integrator:
+    pass
+
+
+class _Renderer:
+    """The renderer's cache of integrators, keyed as the port keys it
+    (kind, settings, with_stats, ...), most recently used last; building
+    one here is a fault."""
+
+    def __init__(self, *built):
+        import collections
+        self._integrators = collections.OrderedDict()
+        for key, counters in built:
+            fn = self._integrators[key] = _Integrator()
+            if counters is not None:
+                fn.last_counters = counters
+
+    def regen_integrator(self, *args, **kwargs):
+        raise AssertionError("program.counters built an integrator")
+
+    integrator = bounce_integrator = regen_integrator
+
+
+def test_program_counters_are_flat():
+    import torch
+    from portbench import program
+    assert program.counters(_Renderer()) == {}
+    assert program.counters(_Renderer((("regen", None, True), None))) == {}
+    got = program.counters(_Renderer((("regen", None, True), {
+        "medium.scatters": torch.tensor(7), "medium.paths": 3,
+        "medium.tr_mean": torch.tensor(0.5)})))
+    assert got == {"medium.scatters": 7, "medium.paths": 3,
+                   "medium.tr_mean": 0.5}
+    assert all(type(v) in (int, float) for v in got.values())
+
+
+def test_program_counters_read_the_last_stats_call():
+    """Of the integrators built, the one of the last with_stats call: not
+    one without stats used after it, not an older one."""
+    from portbench import program
+    r = _Renderer((("regen", None, True, 0), {"old": 1}),
+                  (("bounce", None, True), {"new": 2}),
+                  (("regen", None, False, 0), {"plain": 3}))
+    assert program.counters(r) == {"new": 2}
+    assert program.counters(_Renderer(
+        (("regen", None, False, 0), {"plain": 3}))) == {}
+
+
+def test_traced_render_carries_the_counters(bench, monkeypatch, tmp_path):
+    """A toy traced render run on the CPU hands the program's counters
+    (program.counters of its renderer) to the readers: a per-layer metric
+    whose reader returns one reports it, one whose counter is missing is
+    left out."""
+    import json
+    import os
+    import shutil
+    from portbench import program
+    from portbench.run import run_cell
+    for sub in ("configs", "traffic", "limits", "metrics"):
+        shutil.copytree(os.path.join(ROOT, "portbench", sub),
+                        tmp_path / "portbench" / sub)
+    for name, key in (("probe_count", "probe"), ("absent_count", "gone")):
+        (tmp_path / "portbench" / "metrics" / (name + ".py")).write_text(
+            "def read(run):\n"
+            "    return run.get(\"counters\", {}).get(%r)\n" % key)
+        bench["per_layer"].append({
+            "name": name, "unit": "rays", "better": "lower",
+            "source": "program_counter", "layer": "regen wave loop",
+            "moves": "frame_ms", "workloads": ["testobj_large_1080p"]})
+    monkeypatch.setattr(program, "counters", lambda r: {"probe": 12.5})
+    ov = toy(bench, "testobj_large_1080p", frames_per_call=1, check_pixels=8)
+    ov["config"].update(width=16, height=16)
+    res = run_cell(bench, "testobj_large_1080p", 9, 0.01, 1, "cpu", ov,
+                   root=str(tmp_path))
+    assert res["metrics"]["probe_count"] == {"value": 12.5, "unit": "rays"}
+    assert "absent_count" not in res["metrics"]
+    assert res["correct"], res["check"]
+    json.dumps(res)
+
+
+def test_traced_render_profiles_anew_while_records_are_lost(
+        bench, monkeypatch):
+    """A traced call whose trace lost records (_stages.marks_whole false) is
+    profiled again, into the same accumulation, at most TRACE_TRIES times;
+    the frames of every traced call are compared, so the run stays
+    correct."""
+    from portbench.drivers import cli_loop
+    from portbench.metrics import _stages
+    from portbench.run import run_cell
+    seen = []
+
+    def whole(events, waves):
+        seen.append(sum(waves.values()))
+        return len(seen) == 3
+    monkeypatch.setattr(_stages, "marks_whole", whole)
+    ov = toy(bench, "testobj_large_1080p", frames_per_call=1, check_pixels=8)
+    ov["config"].update(width=16, height=16)
+    res = run_cell(bench, "testobj_large_1080p", 9, 0.01, 1, "cpu", ov)
+    assert len(seen) == 3 and all(seen)
+    assert res["correct"], res["check"]
+
+    seen.clear()
+    monkeypatch.setattr(_stages, "marks_whole", lambda e, w: seen.append(1))
+    res = run_cell(bench, "testobj_large_1080p", 9, 0.01, 1, "cpu", ov)
+    assert len(seen) == cli_loop.TRACE_TRIES
+    assert res["correct"], res["check"]

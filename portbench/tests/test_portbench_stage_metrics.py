@@ -12,10 +12,8 @@ STAGE_METRICS = ["stage_ms." + s for s in (
     "respawn", "ext_trace", "surface", "material", "shade", "bssrdf",
     "sample_env", "shadow_trace", "permute", "scatter")]
 SPAN_METRICS = ["preview_span_ms", "readback_copy_ms",
-                "readback_unswizzle_ms", "readback_upscale_ms",
-                "readback_traced_ms"]
-READBACK = ["readback_copy_ms", "readback_unswizzle_ms",
-            "readback_upscale_ms"]
+                "readback_unswizzle_ms", "readback_traced_ms"]
+READBACK = ["readback_copy_ms", "readback_unswizzle_ms"]
 
 
 def _ev(name, cat, ts, dur):
@@ -39,14 +37,7 @@ def _wave(t, stages, us=10):
 def render_trace():
     """Three waves: two at the full width (20 us a stage), one drain wave
     (5 us a stage); no BSSRDF stage."""
-    stages = ["respawn", "ext_trace", "surface", "material", "shade",
-              "sample_env", "shadow_trace", "permute", "scatter"]
-    ev, t = [_ev(W, "user_annotation", 0, 10000),
-             _ev("cudaGraphLaunch", "cuda_runtime", 1, 5)], 10
-    for us in (20, 20, 5):
-        w, t = _wave(t, stages, us)
-        ev += w
-    return ev
+    return render_trace_with([])
 
 
 def _read(name, run):
@@ -68,6 +59,57 @@ def test_stage_readers_give_ms_a_frame():
     assert _read("drain_ms_per_call", dict(run, waves={1024: 5})) is None
 
 
+def render_trace_with(extra, after="ext_trace"):
+    """render_trace's three waves with the stages `extra` marked after the
+    stage `after`, each with its kernel."""
+    stages = ["respawn", "ext_trace", "surface", "material", "shade",
+              "sample_env", "shadow_trace", "permute", "scatter"]
+    at = stages.index(after) + 1
+    stages[at:at] = extra
+    ev, t = [_ev(W, "user_annotation", 0, 10000),
+             _ev("cudaGraphLaunch", "cuda_runtime", 1, 5)], 10
+    for us in (20, 20, 5):
+        w, t = _wave(t, stages, us)
+        ev += w
+    return ev
+
+
+def test_a_new_stage_mark_is_read_by_its_name(tmp_path):
+    """A stage the program adds, `medium`, marked between `ext_trace` and
+    `surface`: the medium's kernels, which a trace without its mark files
+    under `ext_trace`, go to `medium`, `ext_trace` loses exactly their
+    time, every other reading stays, and a reader file
+    stage_ms.medium.py is all it takes to report it."""
+    from portbench.metrics import _stages
+    from portbench.run import read_metric
+    marked = render_trace_with(["medium"])
+    bare = [e for e in marked if e["name"] != "pt_stage_medium"]
+    run = {"loop": "render", "events": bare, "window": W, "frames": 2,
+           "waves": {1024: 2, 256: 1}}
+    mrun = dict(run, events=marked)
+    assert _stages.stage_ms(run, "medium") is None
+    medium = (20 + 20 + 5) / 1e3 / 2
+    assert _stages.stage_ms(mrun, "medium") == pytest.approx(medium)
+    assert _read("stage_ms.ext_trace", mrun) == pytest.approx(
+        _read("stage_ms.ext_trace", run) - medium)
+    assert _read("stage_ms.ext_trace", run) == pytest.approx(2 * medium)
+    for name in STAGE_METRICS + ["drain_ms_per_call"]:
+        if name != "stage_ms.ext_trace":
+            assert _read(name, mrun) == _read(name, run), name
+    a = _stages.stage_device_ms(bare, W)
+    b = _stages.stage_device_ms(marked, W)
+    assert b["wave_ms"] == a["wave_ms"] and b["none_ms"] == a["none_ms"]
+    assert b["marks"] == a["marks"] + 3
+    reader = tmp_path / "portbench" / "metrics" / "stage_ms.medium.py"
+    reader.parent.mkdir(parents=True)
+    reader.write_text("from portbench.metrics._stages import stage_ms\n\n\n"
+                      "def read(run):\n"
+                      "    return stage_ms(run, \"medium\")\n")
+    assert read_metric("stage_ms.medium", mrun, str(tmp_path)) == \
+        pytest.approx(medium)
+    assert read_metric("stage_ms.medium", run, str(tmp_path)) is None
+
+
 def test_stage_device_ms_of_the_benchmark():
     from portbench.metrics import _stages
     got = _stages.stage_device_ms(render_trace(), W)
@@ -77,14 +119,52 @@ def test_stage_device_ms_of_the_benchmark():
     assert len(got["wave_starts"]) == 3
 
 
+def test_marks_outside_the_host_window_still_count():
+    """The profiler's device timestamps stray from the host's clock, so a
+    wave's marks can fall before or after the host's window: the stage
+    readers take every device event of the trace, and read the same as
+    with the marks inside it."""
+    run = {"loop": "render", "events": render_trace(), "window": W,
+           "frames": 2, "waves": {1024: 2, 256: 1}}
+    strayed = [dict(e, ts=20.0, dur=300.0) if e["name"] == W else e
+               for e in run["events"]]
+    srun = dict(run, events=strayed)
+    for name in STAGE_METRICS + ["drain_ms_per_call"]:
+        assert _read(name, srun) == _read(name, run), name
+    assert _read("drain_ms_per_call", srun) == pytest.approx(0.045)
+
+
+def test_marks_whole_tells_a_trace_that_lost_records():
+    from portbench.metrics import _stages
+    ev = render_trace()
+    assert _stages.marks_whole(ev, {1024: 2, 256: 1})
+    assert not _stages.marks_whole(ev, {1024: 3, 256: 1})
+    # the second wave's records lost, its respawn mark with them
+    first_end = next(i for i, e in enumerate(ev)
+                     if e["name"] == "pt_stage_end")
+    second_end = next(i for i, e in enumerate(ev)
+                      if e["name"] == "pt_stage_end" and i > first_end)
+    lost = ev[:first_end + 2] + ev[second_end - 3:]
+    assert not _stages.marks_whole(lost, {1024: 2, 256: 1})
+    # only an end mark lost
+    no_end = [e for i, e in enumerate(ev) if i != second_end]
+    assert not _stages.marks_whole(no_end, {1024: 2, 256: 1})
+    # one mark of a middle stage lost
+    one = next(i for i, e in enumerate(ev) if e["name"] == "pt_stage_shade")
+    assert not _stages.marks_whole(ev[:one] + ev[one + 1:],
+                                   {1024: 2, 256: 1})
+    # a trace without marks: nothing a second call could mend
+    bare = [e for e in ev if not e["name"].startswith("pt_stage_")]
+    assert _stages.marks_whole(bare, {1024: 2, 256: 1})
+
+
 def _drag_trace(steps=2):
     ev = [_ev(W, "user_annotation", 0, 10 ** 7)]
     t = 100
     for _ in range(steps):
         for name, dur in (("pt.viewer.preview", 25000),
-                          ("pt.image.copy", 1000),
                           ("pt.image.unswizzle", 9000),
-                          ("pt.viewer.upscale", 12000)):
+                          ("pt.image.copy", 1000)):
             ev.append(_ev(name, "user_annotation", t, dur))
             # the device's view of a record_function, not a host span
             ev.append(_ev(name, "gpu_user_annotation", t, dur))
@@ -103,7 +183,6 @@ def test_span_readers_give_ms_a_step():
     assert _read("preview_span_ms", run) == pytest.approx(25.0)
     assert _read("readback_copy_ms", run) == pytest.approx(1.0)
     assert _read("readback_unswizzle_ms", run) == pytest.approx(9.0)
-    assert _read("readback_upscale_ms", run) == pytest.approx(12.0)
     # the readback of the two traced steps only, not readback_ms's 26.8
     assert _read("readback_traced_ms", run) == pytest.approx(22.0)
     assert _read("readback_ms", run) == pytest.approx(26.8)

@@ -964,13 +964,14 @@ def _kernel_events(fn, tmp_path, cat="kernel"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["default", "bssrdf"])
+@pytest.mark.parametrize("case", ["default", "bssrdf", "media"])
 def test_replayed_stats_call_carries_the_stage_marks(device, case,
                                                      tmp_path):
     """A replayed with_stats call's trace holds the pt_stage_* kernels
-    (csrc/marks.cu) in stage order, one respawn a wave launched; the
-    replayed call without with_stats holds none; stage_device_ms gives
-    every marked stage device time."""
+    (csrc/marks.cu) in stage order, one respawn a wave launched (`medium`
+    after `ext_trace` in a scene with media only); the replayed call
+    without with_stats holds none; stage_device_ms gives every marked
+    stage device time."""
     from tpu_pathtracer_torch.ops.marks import MARK_PREFIX as prefix
     from tpu_pathtracer_torch.utils import profiling
     r, rc = _graph_case(case, device)
@@ -983,7 +984,9 @@ def test_replayed_stats_call_carries_the_stage_marks(device, case,
                                                    2), tmp_path)
     marks = [e["name"][len(prefix):] for e in traced
              if e["name"].startswith(prefix)]
-    want = ["respawn", "ext_trace", "surface", "material", "shade"] \
+    want = ["respawn", "ext_trace"] \
+        + (["medium"] if case == "media" else []) \
+        + ["surface", "material", "shade"] \
         + (["bssrdf"] if case == "bssrdf" else []) \
         + ["sample_env", "shadow_trace", "permute", "scatter", "end"]
     assert marks == want * launched and launched > 3
@@ -993,6 +996,30 @@ def test_replayed_stats_call_carries_the_stage_marks(device, case,
     assert sorted(got["stages"]) == sorted(want[:-1])
     assert all(ms > 0 for ms in got["stages"].values()), got["stages"]
     assert len(got["wave_ms"]) == launched and got["marks"] == len(marks)
+
+
+@pytest.mark.cuda
+def test_replayed_medium_counters_equal_the_eager_call(device):
+    """The medium counters of a replayed with_stats call (graphs at every
+    drain width) equal those of the same call run eagerly, and the two
+    images are the same bits."""
+    from tpu_pathtracer_torch.tracer import device_loop
+    r, rc = _graph_case("media", device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        r.render_frames(r.zeros_accum(), rc, 1, 2, with_stats=True)
+        replayed = r.render_frames(r.zeros_accum(), rc, 1, 2,
+                                   with_stats=True)[0]
+        got = dict(r.regen_integrator(True).last_counters)
+        with device_loop.no_graphs():
+            eager = r.render_frames(r.zeros_accum(), rc, 1, 2,
+                                    with_stats=True)[0]
+        want = r.regen_integrator(True).last_counters
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert got == want and 0 < want["medium_scatters"] \
+        < want["medium_lanes"]
+    assert torch.equal(replayed, eager)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,10 @@
 """The port's own spans (utils/profiling.py) and stage marks
 (ops/marks.py): the stage marks of a regen with_stats call in wave order,
-one `respawn` a wave counted in RegenIntegrator.last_waves, none without
-with_stats and none in the bounce integrator, the image unchanged by
-them; the viewer step's host spans; stage_device_ms
+one `respawn` a wave counted in RegenIntegrator.last_waves, `medium` after
+`ext_trace` in a scene with media only, none without with_stats and none
+in the bounce integrator, the image unchanged by them; the medium
+counters of RegenIntegrator.last_counters against a count of the same
+call stepped by hand; the viewer step's host spans; stage_device_ms
 on a synthetic trace; and the CLI's rate line, which synchronizes once a
 report. On the CPU a mark is a zero-length record_function named as the
 kernel that marks the stage on the card (the card's marks are in
@@ -22,7 +24,9 @@ from torch.profiler import ProfilerActivity, profile
 from tpu_pathtracer_torch.scene import demo
 from tpu_pathtracer_torch.ops import marks as stage_marks
 from tpu_pathtracer_torch.tools import interactive as viewer
-from tpu_pathtracer_torch.tracer.renderer import Renderer, lane_tables
+from tpu_pathtracer_torch.tracer import regen
+from tpu_pathtracer_torch.tracer.renderer import (
+    Renderer, camera_vector, lane_tables)
 from tpu_pathtracer_torch.utils import cuda_build, profiling, timing
 
 torch.set_num_threads(2)
@@ -105,13 +109,16 @@ def _profiled_render(variant, settings=(), with_stats=True):
 
 @pytest.mark.parametrize("variant,settings", [
     ("default", ()), ("subsurface", ()),
-    ("default", (("scatter_mode", "wave"),))])
+    ("default", (("scatter_mode", "wave"),)), ("media", ())])
 def test_with_stats_call_marks_every_stage_of_every_wave(variant, settings):
     (acc, waves, rays), marks, _, counted = _profiled_render(variant,
                                                              settings)
     want = list(REGEN)
     if variant == "subsurface":
         want.insert(want.index("shade") + 1, "bssrdf")
+    if variant == "media":
+        # the medium step between the closest-hit trace and the surface
+        want.insert(want.index("ext_trace") + 1, "medium")
     if dict(settings).get("scatter_mode") == "wave":
         # every wave adds its contribution before the permute
         want.remove("scatter")
@@ -119,7 +126,9 @@ def test_with_stats_call_marks_every_stage_of_every_wave(variant, settings):
     per_wave = _waves(marks)
     # every wave launched, the one past the end included (device_loop.LAG)
     assert len(per_wave) == sum(counted.values()) == waves + 1 > 3
-    assert len(counted) == 3                 # the drain widths ran
+    # the drain widths ran (the media paths at 8x8 end before the live
+    # count reaches the narrowest width's 4 lanes)
+    assert len(counted) == (2 if variant == "media" else 3)
     assert all(w == want for w in per_wave), per_wave[0]
 
 
@@ -145,12 +154,81 @@ def test_call_without_stats_marks_nothing():
 
 
 @pytest.mark.parametrize("variant", ["default", "subsurface"])
+def test_scenes_without_media_keep_their_marks(variant):
+    """The marks of a wave as they were before the `medium` stage: a scene
+    without media launches no `medium` mark and every other one as
+    before."""
+    _, marks, _, _ = _profiled_render(variant)
+    before = {"default": ["respawn", "ext_trace", "surface", "material",
+                          "shade", "sample_env", "shadow_trace", "permute",
+                          "scatter", "end"],
+              "subsurface": ["respawn", "ext_trace", "surface", "material",
+                             "shade", "bssrdf", "sample_env",
+                             "shadow_trace", "permute", "scatter", "end"]}
+    assert "medium" not in marks
+    assert marks == before[variant] * len(_waves(marks))
+
+
+@pytest.mark.parametrize("variant", ["default", "subsurface", "media"])
 def test_marks_leave_the_image_bits(variant):
     (marked, _, _), marks, _, _ = _profiled_render(variant)
     r = _renderer(variant)
     assert marks
     assert torch.equal(marked, r.render_frames(r.zeros_accum(), _camera(),
                                                1, 1))
+
+
+def _hand_counts(r, cam, n_frames, monkeypatch):
+    """(accum, {medium_lanes, medium_scatters}) of a call without
+    with_stats stepped by hand at the full width (RegenIntegrator.start,
+    regen_wave), counted around each wave's medium_interaction: its live
+    lanes inside a medium and the lanes it scattered."""
+    counted = {"medium_lanes": 0, "medium_scatters": 0}
+    plain = regen.medium_interaction
+
+    def counting(scene, rng, orig, raydir, mask, hit_t, medium_id, active):
+        out = plain(scene, rng, orig, raydir, mask, hit_t, medium_id, active)
+        counted["medium_lanes"] += int((active & (medium_id >= 0)).sum())
+        counted["medium_scatters"] += int(out[-1].sum())
+        return out
+    monkeypatch.setattr(regen, "medium_interaction", counting)
+    fn = regen.make_regen_integrator(r.settings, r.width, r.height)
+    cfg, st = fn.start(r.scene, camera_vector(cam, "cpu"), 1, 0,
+                       r.zeros_accum(), n_frames)
+    while not bool(st["status"][0]):
+        regen.regen_wave(cfg, r.scene, st)
+    monkeypatch.setattr(regen, "medium_interaction", plain)
+    return st["accum"], counted
+
+
+def test_medium_counters_equal_a_count_by_hand(monkeypatch):
+    """A with_stats call on a scene with media publishes, in
+    last_counters, the live lanes inside a medium at the medium step and
+    the lanes that scattered, summed over every wave at every drain width:
+    the count of the same call stepped by hand at the full width."""
+    r = _renderer("media", 16)
+    cam = _camera(16)
+    acc, waves, rays = r.render_frames(r.zeros_accum(), cam, 1, 2,
+                                       with_stats=True)
+    fn = r.regen_integrator(True)
+    assert len(fn.last_waves) >= 2              # a drain width ran
+    got = fn.last_counters
+    hand_acc, want = _hand_counts(r, cam, 2, monkeypatch)
+    assert got == want and all(type(v) is int for v in got.values())
+    assert 0 < got["medium_scatters"] < got["medium_lanes"]
+    assert torch.equal(acc, hand_acc)
+    # a call without with_stats keeps no counter, nor does its integrator
+    r.render_frames(r.zeros_accum(), cam, 1, 2)
+    assert r.regen_integrator(False).last_counters == {}
+    assert r.regen_integrator(True).last_counters == want
+
+
+@pytest.mark.parametrize("variant", ["default", "subsurface"])
+def test_scene_without_media_publishes_no_counter(variant):
+    r = _renderer(variant)
+    r.render_frames(r.zeros_accum(), _camera(), 1, 1, with_stats=True)
+    fn = r.regen_integrator(True)
+    assert fn.last_counters == {} and sum(fn.last_waves.values()) > 0
 
 
 VIEWER_SPANS = ("pt.viewer.preview", "pt.image.unswizzle", "pt.image.copy")

@@ -16,7 +16,9 @@
 // carry none.
 //
 // The kernels are extern "C", so the trace names them `pt_stage_<stage>`
-// as they are written here. The order of kStages is the order of
+// as they are written here, in wave order: respawn, ext_trace, medium (a
+// scene with media), surface, material, shade, bssrdf (a scene with a
+// subsurface material), sample_env, shadow_trace, permute, scatter, end. The order of kStages is the order of
 // ops/marks.py: STAGES, whose index tpt_stage_mark takes.
 
 #include <cuda_runtime.h>
@@ -24,6 +26,7 @@
 
 extern "C" __global__ void pt_stage_respawn() {}
 extern "C" __global__ void pt_stage_ext_trace() {}
+extern "C" __global__ void pt_stage_medium() {}
 extern "C" __global__ void pt_stage_surface() {}
 extern "C" __global__ void pt_stage_material() {}
 extern "C" __global__ void pt_stage_shade() {}
@@ -38,10 +41,10 @@ namespace {
 
 typedef void (*Mark)();
 const Mark kStages[] = {
-    pt_stage_respawn,  pt_stage_ext_trace,    pt_stage_surface,
-    pt_stage_material, pt_stage_shade,        pt_stage_bssrdf,
-    pt_stage_sample_env, pt_stage_shadow_trace, pt_stage_permute,
-    pt_stage_scatter,  pt_stage_end,
+    pt_stage_respawn,    pt_stage_ext_trace,    pt_stage_medium,
+    pt_stage_surface,    pt_stage_material,     pt_stage_shade,
+    pt_stage_bssrdf,     pt_stage_sample_env,   pt_stage_shadow_trace,
+    pt_stage_permute,    pt_stage_scatter,      pt_stage_end,
 };
 constexpr int kNumStages = sizeof(kStages) / sizeof(kStages[0]);
 

@@ -19,9 +19,11 @@ import ctypes
 import torch
 
 # the stages of a regen wave in wave order, each running from its mark to
-# the next; `end` closes the wave (tracer/regen.py: regen_wave)
-STAGES = ("respawn", "ext_trace", "surface", "material", "shade", "bssrdf",
-          "sample_env", "shadow_trace", "permute", "scatter", "end")
+# the next; `medium` (a scene with media) and `bssrdf` (a scene with a
+# subsurface material) are marked only where the scene has them; `end`
+# closes the wave (tracer/regen.py: regen_wave)
+STAGES = ("respawn", "ext_trace", "medium", "surface", "material", "shade",
+          "bssrdf", "sample_env", "shadow_trace", "permute", "scatter", "end")
 MARK_PREFIX = "pt_stage_"
 
 

@@ -75,15 +75,23 @@ body, as in the JAX package.
 Stage marks. A with_stats call (the instrumented one; its key differs
 from the plain call's, so it has graphs of its own) marks the start of
 each stage of a wave with ops/marks.py: stage_mark, in wave order:
-respawn, ext_trace (with the media sampling), surface (the attribute
-fetch, the env / texture lookup), material, shade, bssrdf (has_bssrdf
-only), sample_env, shadow_trace (NEE's and the distant light's any-hit
-traces and what follows up to the permute), permute, scatter (the
-dead-row flush; under scatter_mode "wave" the per-wave add, before the
-permute) and end, after the status. On the card a mark is an empty kernel
-captured into the wave's graph, so a replayed call's trace splits its
-device time by stage (stage_device_ms); a call without with_stats
-launches none.
+respawn, ext_trace (the closest-hit trace), medium (has_media only: the
+distance sampling, the transmittance, the HG direction, the scatter
+budget and the miss mask), surface (the attribute fetch, the env /
+texture lookup), material, shade, bssrdf (has_bssrdf only), sample_env,
+shadow_trace (NEE's and the distant light's any-hit traces and what
+follows up to the permute), permute, scatter (the dead-row flush; under
+scatter_mode "wave" the per-wave add, before the permute) and end, after
+the status. On the card a mark is an empty kernel captured into the
+wave's graph, so a replayed call's trace splits its device time by stage
+(stage_device_ms); a call without with_stats launches none.
+
+Counters. A with_stats call of a scene with media also counts, in two
+int64 device scalars of its state summed over every wave at every drain
+width, the live lanes inside a medium at the medium step
+(`medium_lanes`) and the lanes that scattered there (`medium_scatters`);
+the integrator reads them once after the call into `last_counters`
+({} for a scene without media or a call without with_stats).
 
 `dup_stage` (the JAX bench's stage-duplication hook): the stage named
 runs twice a wave, the second call perturbed as in the JAX hook, and the
@@ -120,6 +128,9 @@ DUP_STAGES = ("respawn", "ext_trace", "fetch", "envmiss", "texture", "shade",
               "sample_env", "shadow_trace", "scatter", "permute")
 # the drain's narrower widths, P // d for each d (compact order only)
 DRAIN_DIVS = (4, 16)
+# the counters of a with_stats call on a scene with media, published in
+# RegenIntegrator.last_counters (see the module docstring)
+COUNTERS = ("medium_lanes", "medium_scatters")
 
 
 def _check_settings(settings: RenderSettings):
@@ -175,10 +186,11 @@ class WaveConfig:
 
 def new_state(cfg: WaveConfig, device):
     """The tensors a wave reads and writes in place: the pool columns, the
-    device scalars (next, alive, waves, rays, tot, frame0, lane0), the
-    status a wave ends with (int64 [done, alive, samples left]), the camera
-    vector, the image slice `accum` [N,3] and, for dup_stage="scatter", a
-    scratch image. Filled by reset()."""
+    device scalars (next, alive, waves, rays, tot, frame0, lane0, and the
+    COUNTERS of a with_stats call on a scene with media), the status a wave
+    ends with (int64 [done, alive, samples left]), the camera vector, the
+    image slice `accum` [N,3] and, for dup_stage="scatter", a scratch
+    image. Filled by reset()."""
     P, N = cfg.P, cfg.N
     f32 = dict(dtype=torch.float32, device=device)
     i64 = dict(dtype=torch.int64, device=device)
@@ -199,9 +211,16 @@ def new_state(cfg: WaveConfig, device):
               scratch=torch.empty((N, 3), **f32)
               if cfg.settings.dup_stage == "scatter" else None,
               light=distant_light(cfg.settings, device))
-    for k in ("next", "alive", "waves", "tot", "frame0", "lane0"):
+    for k in ("next", "alive", "waves", "tot", "frame0", "lane0") \
+            + _counters(cfg):
         st[k] = torch.empty((), **i64)
     return st
+
+
+def _counters(cfg: WaveConfig):
+    """The names of the counters a call of cfg keeps: COUNTERS under
+    with_stats on a scene with media, else none."""
+    return COUNTERS if cfg.with_stats and cfg.settings.has_media else ()
 
 
 def narrow(cfg: WaveConfig, st, w):
@@ -235,7 +254,7 @@ def reset(cfg: WaveConfig, st, cam_vec, frame0, lane0, accum, n_frames):
     call's inputs copied in (tot = N * n_frames samples). Device work
     only: fills and device copies."""
     for k in ("orig", "dir", "mask", "L", "rng", "pixel", "lbn", "bounce",
-              "next", "alive", "waves", "rays"):
+              "next", "alive", "waves", "rays") + _counters(cfg):
         st[k].zero_()
     st["bsdf_pdf"].fill_(-1.0)
     st["medium_id"].fill_(-1)
@@ -260,13 +279,14 @@ def _add_to_image(st, idx, val):
 
 
 def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
-             active, prefix, light):
+             active, prefix, light, st):
     """One wavefront segment over all P lanes: `active` is the live mask;
     `prefix` (compact order) the live prefix as a 0-d int32 device tensor,
-    which the extension trace takes. Returns the new (o, d, m, pdf, rng,
-    lbn, bounce, medium_id), this wave's radiance, the finished mask, the
-    hit slots and the count of shadow rays traced (a device scalar, 0
-    without with_stats)."""
+    which the extension trace takes; `st` the wave's state, whose counters
+    (_counters) it adds to. Returns the new (o, d, m, pdf, rng, lbn, bounce,
+    medium_id), this wave's radiance, the finished mask, the hit slots and
+    the count of shadow rays traced (a device scalar, 0 without
+    with_stats)."""
     settings = cfg.settings
     dup = settings.dup_stage
     mark = stage_marker(cfg.with_stats, o.device)
@@ -280,8 +300,13 @@ def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
                             active_prefix=prefix)
         hit_t = plus_zero_times(hit_t, ht2)
     if settings.has_media:
+        mark("medium")
+        if _counters(cfg):
+            st["medium_lanes"].add_((active & (mid >= 0)).sum())
         r, o, d, m, sampled_medium = medium_interaction(
             scene, r, o, d, m, hit_t, mid, active)
+        if _counters(cfg):
+            st["medium_scatters"].add_(sampled_medium.sum())
         lbn_a = torch.where(
             sampled_medium,
             torch.clamp_max(lbn_a + 1, settings.bounce_max), lbn_a)
@@ -404,7 +429,7 @@ def regen_wave(cfg: WaveConfig, scene, st):
      n_shadow) = _segment(
         cfg, scene, st["cam_vec"], vec("orig"), vec("dir"), vec("mask"),
         st["bsdf_pdf"], st["rng"], st["lbn"], st["bounce"], st["medium_id"],
-        act, None if cfg.inplace else n_act.to(torch.int32), st["light"])
+        act, None if cfg.inplace else n_act.to(torch.int32), st["light"], st)
     # the segment draws random numbers on every lane: the lanes outside
     # the live set keep their state
     r = torch.where(act, r, st["rng"])
@@ -501,8 +526,10 @@ class RegenIntegrator:
     """integrate_frames of make_regen_integrator, with the wave its last
     replayed call captured (`graph`, a device_loop.StepGraph of one
     capture_key, a graph a drain width; a call of another key captures
-    anew) and the waves its last call ran at each width (`last_waves`,
-    over-run waves included)."""
+    anew), the waves its last call ran at each width (`last_waves`,
+    over-run waves included) and the counters its last call kept
+    (`last_counters`, {name: host int}; {} but for a with_stats call on a
+    scene with media)."""
 
     def __init__(self, settings, width, height, with_stats=False,
                  stop_after_waves=0):
@@ -517,6 +544,7 @@ class RegenIntegrator:
         self.stop_after_waves = stop_after_waves
         self.graph, self._graph_key = None, None
         self.last_waves = {}
+        self.last_counters = {}
 
     def _config(self, N, n_frames):
         P = N if self.settings.pool_lanes <= 0 \
@@ -567,13 +595,15 @@ class RegenIntegrator:
                                  n_frames)
             steps = _wave_steps(cfg, scene, st)
             ring = device_loop.StatusRing(device)
-        self.last_waves = {}
+        self.last_waves, self.last_counters = {}, {}
         ran = collections.Counter()
         if int(n_frames) > 0 and cfg.N > 0:
             ring.reset()
             yield from device_loop.drive(_wave_launcher(steps, ran),
                                          st["status"], ring)
         self.last_waves = dict(ran)
+        # read once, after the call (only a with_stats call keeps them)
+        self.last_counters = {k: int(st[k]) for k in _counters(cfg)}
         return self._result(st, copy=replay)
 
     def _result(self, st, copy):

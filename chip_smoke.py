@@ -165,13 +165,28 @@ back to the CPU. Phases, each fatal on failure:
    spp, replayed with the kernels and with the plain versions, under
    torch's deterministic algorithms: the gate statistics, and bit for
    bit;
+14. the compaction permute's pool gather (csrc/permute.cu, one launch a
+   compact regen wave, counted on every path above): (14a) at 1,048,576
+   and 518,400 rows (the CLI cells' pool, the 960x540 preview's), with
+   NaN, infinities, -0.0, bsdf_pdf -1, rng with its high bits set, lbn
+   and bounce 0 and 127, medium_id -1 and 32766, under each aliasing of
+   the wave (the pool's pixel; L too; lbn and medium_id too), once and
+   with dup, the kernel equals its plain version (ops/permute.py) in
+   every column bit for bit; the bare launch, the wrapper as a wave runs
+   it (captured), the plain version and the old cat, gather and split
+   captured (library_ms), in turns, beside the byte bound (168 B a row);
+   (14b) the same times on the
+   inputs of a 1920x1080 TestObj frame's third full-width wave (its
+   order, not a random one); (14c) TestObj and media regen renders, 2
+   spp, replayed with the kernel and with the plain version, under
+   torch's deterministic algorithms: bit for bit, one launch a wave;
 6. print the kernels line (rows 1-3 also carry their launches on the
    replayed bounce path, "launches_bounce", rows 1-2 on the viewer path,
    "launches_viewer"; the shade kernel and the surface fetches both, the
    fetches also on the sss regen path, "launches_sss_regen"), the card
    line, and the result line (last).
 
-Phases 4-13 replay captured steps (the default on a CUDA device): each
+Phases 4-14 replay captured steps (the default on a CUDA device): each
 renderer's first call of a key captures, and the timed calls come after a
 warm-up call of the same key.
 
@@ -1993,6 +2008,184 @@ def phase13(np, torch, dev, parts, sss_parts, W):
     return rec
 
 
+P_PERMUTE = (1 << 20, 518400)    # the CLI cells' pool, the preview's
+WAVE_W, WAVE_H = 1920, 1080        # phase 14b's frame
+
+
+def graph_of(torch, fn):
+    """fn captured once as a CUDA graph, after one warm-up call on a side
+    stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def time_pool_gather(torch, permute, st, args):
+    """The pool gather's times on (st, args), in turns: plain, kernel,
+    kernel, plain; the kernel as its bare launch and as a wave runs it
+    (the wrapper captured in a graph: the aliased sources' copies and the
+    launch), the plain version eager and captured (the old cat, gather
+    and split as the wave ran it: library_ms); beside the byte bound."""
+    from tpu_pathtracer_torch.utils.timing import cuda_ms
+    P = args[0].shape[0]
+    bare = permute.launch_fn(st, *args)
+    wrapped = graph_of(torch, lambda: permute.pool_gather_cuda(st, *args))
+    library = graph_of(torch, lambda: permute.pool_gather_plain(st, *args))
+    kernel_ms, wave_ms, plain_ms, library_ms = [], [], [], []
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "kernel":
+            kernel_ms.append(cuda_ms(bare, 50))
+            wave_ms.append(cuda_ms(wrapped.replay, 50))
+        else:
+            plain_ms.append(cuda_ms(
+                lambda: permute.pool_gather_plain(st, *args), 10))
+            library_ms.append(cuda_ms(library.replay, 20))
+    bound = permute.io_bytes(P) / HBM_BYTES_PER_S * 1e3
+    return {"rows": P, "kernel_ms": kernel_ms, "wave_graph_ms": wave_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes": permute.io_bytes(P), "bound_ms": bound,
+            "bound_share": bound / min(kernel_ms)}
+
+
+def pool_gather_times_line(t):
+    return ("bare kernel %s ms; as the wave runs it (copies + launch, "
+            "graph) %s ms; plain %s ms, old cat/gather/split in a graph %s "
+            "ms; bound %.4f ms (168 B a row), kernel at %.1f%% of it"
+            % (["%.4f" % x for x in t["kernel_ms"]],
+               ["%.4f" % x for x in t["wave_graph_ms"]],
+               ["%.3f" % x for x in t["plain_ms"]],
+               ["%.4f" % x for x in t["library_ms"]], t["bound_ms"],
+               100 * t["bound_share"]))
+
+
+def phase14(np, torch, dev, scenes, W):
+    """Phase 14: the compaction permute's pool gather (csrc/permute.cu)
+    against its plain version at P_PERMUTE rows, with the edge values of
+    every column and each aliasing of the regen wave, its times beside the
+    byte bound there and on the order of a real wave, and W x W TestObj
+    and media regen renders with the kernel against the same renders with
+    the plain version. scenes: {"testobj",
+    "media"} -> scene parts. Returns the record."""
+    from tpu_pathtracer_torch.ops import permute
+    from tpu_pathtracer_torch.scene import demo
+    from tpu_pathtracer_torch.tracer import device_loop, regen
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    inputs = test_inputs("permute")
+    rec = {"sizes": {}}
+
+    # ---- 14a. kernel = plain version bit for bit; times ----
+    for P in P_PERMUTE:
+        row = {"differing_rows": {}}
+        for alias in inputs.ALIASES:
+            for dup in (False, True):
+                st, args = inputs.pool_inputs(P, 140 + len(alias), dev,
+                                              alias)
+                st2, args2 = inputs.clone_case(st, args)
+                before = permute.LAUNCHES["pool_gather"]
+                permute.pool_gather(st, *args, dup=dup)
+                permute.pool_gather_plain(st2, *args2, dup=dup)
+                torch.cuda.synchronize()
+                assert permute.LAUNCHES["pool_gather"] == \
+                    before + (2 if dup else 1)
+                differ = {k: int((inputs.bits(st[k]) != inputs.bits(
+                    st2[k])).reshape(P, -1).any(1).sum()) for k in st}
+                row["differing_rows"]["%s%s" % (alias, "_dup" * dup)] = \
+                    differ
+                assert not any(differ.values()), (P, alias, dup, differ)
+                del st, args, st2, args2
+        # the main path's case: only the pool's pixel column aliased
+        st, args = inputs.pool_inputs(P, 150, dev)
+        row.update(time_pool_gather(torch, permute, st, args))
+        rec["sizes"][str(P)] = row
+        log("  14a pool gather at %d rows: = plain version bit for bit "
+            "(3 aliasings, once and dup); a random order: %s"
+            % (P, pool_gather_times_line(row)))
+        del st, args
+        torch.cuda.empty_cache()
+
+    # ---- 14b. the order of a wave: the inputs of a 1920x1080 TestObj
+    # frame's third full-width wave, recorded eagerly ----
+    fb, mats, envmap, texture = scenes["testobj"]
+    r = Renderer(fb, mats, envmap=envmap, texture=texture, width=WAVE_W,
+                 height=WAVE_H, device=dev)
+    seen = []
+    saved = regen.pool_gather
+
+    def record(st, src, *sources, dup=False):
+        seen.append(src.shape[0])
+        if len(seen) == 3:
+            rec["wave_inputs"] = inputs.clone_case(st, (src,) + sources)
+        saved(st, src, *sources, dup=dup)
+    regen.pool_gather = record
+    try:
+        with device_loop.no_graphs():
+            r.render_frames(r.zeros_accum(), demo.default_camera(
+                WAVE_W, WAVE_H).build_render_camera(), 1, 1)
+    finally:
+        regen.pool_gather = saved
+    st, args = rec.pop("wave_inputs")
+    src = args[0]
+    P = src.shape[0]
+    ahead = int((src[1:] == src[:-1] + 1).sum()) / max(P - 1, 1)
+    wave = {"rows": P, "widths_seen": seen[:4],
+            "share_of_rows_next_to_their_predecessor": ahead}
+    wave.update(time_pool_gather(torch, permute, st, args))
+    rec["wave_order"] = wave
+    log("  14b pool gather on a %dx%d TestObj wave's order (%d rows, "
+        "%.1f%% of rows read the row after their predecessor's): %s"
+        % (WAVE_W, WAVE_H, P, 100 * ahead, pool_gather_times_line(wave)))
+    del r, st, args, src
+    torch.cuda.empty_cache()
+
+    # ---- 14c. renders: the kernel against the plain version ----
+    rec["renders"] = {}
+    rc = demo.default_camera(W, W).build_render_camera()
+    saved = regen.pool_gather
+    for tag in ("testobj", "media"):
+        fb, mats, envmap, texture = scenes[tag]
+        imgs, run = {}, {}
+        for mode in ("kernel", "plain"):
+            r = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                         height=W, device=dev)
+            if mode == "plain":
+                regen.pool_gather = permute.pool_gather_plain
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                r.render_frames(r.zeros_accum(), rc, 1, 2)     # captures
+                torch.cuda.synchronize()
+                zero_counts()
+                acc, ms = event_ms(torch, lambda: r.render_frames(
+                    r.zeros_accum(), rc, 1, 2))
+                counts = read_counts()
+                waves = sum(r.regen_integrator(False).last_waves.values())
+            finally:
+                torch.use_deterministic_algorithms(False)
+                regen.pool_gather = saved
+            imgs[mode] = acc
+            run[mode] = {"ms_per_frame": ms / 2, "waves": waves,
+                         "launches": counts["pool_gather"]}
+            del r
+        assert run["kernel"]["launches"] == run["kernel"]["waves"] > 0, run
+        assert run["plain"]["launches"] == 0, run
+        bit_equal = torch.equal(imgs["kernel"], imgs["plain"])
+        assert bit_equal, (tag, "the pool gather kernel moved the image")
+        rec["renders"][tag] = {"bit_equal": bit_equal, **run}
+        log("  14c %s regen %dx%d x 2 spp, deterministic: kernel %.2f ms a "
+            "frame (%d launches in %d waves), plain %.2f ms; bit for bit: %s"
+            % (tag, W, W, run["kernel"]["ms_per_frame"],
+               run["kernel"]["launches"], run["kernel"]["waves"],
+               run["plain"]["ms_per_frame"], bit_equal))
+        del imgs
+        torch.cuda.empty_cache()
+    return rec
+
+
 DMA_CASES = (("gather_wide", 128, "perm", 1, "gather"),
              ("gather_flat", 0, "perm", 1, "gather"),
              ("gather_batch8", 128, "run8", 8, "gather"),
@@ -2405,7 +2598,7 @@ def main():
     main, _ = timed_frames(np, torch, ops, r, rc, spp, "main path")
     launches = main["launches"]
     for k in ("traverse_closest", "traverse_anyhit", "shade",
-              "fetch_attributes", "env_tex_merged"):
+              "fetch_attributes", "env_tex_merged", "pool_gather"):
         assert launches[k] > 0, "main path never launched %s" % k
     report["main_path"] = main
 
@@ -2565,6 +2758,13 @@ def main():
                                 big_scenes["organic_sss"], W)
     report["phase13"]["s"] = time.time() - t0
 
+    # ---- 14. the compaction permute's pool gather ----
+    t0 = time.time()
+    report["phase14"] = phase14(np, torch, dev, {
+        "testobj": (fb, mats, envmap, texture),
+        "media": big_scenes["organic_media"]}, W)
+    report["phase14"]["s"] = time.time() - t0
+
     assert "jax" not in sys.modules, "the port imported jax"
     assert not [m for m in sys.modules if m == "tpu_pathtracer"
                 or m.startswith("tpu_pathtracer.")], \
@@ -2713,6 +2913,18 @@ def main():
             row["launches"] = row["launches_bounce"]
         assert row["launches"] > 0 and row["launches_sss_regen"] > 0, row
         kernels.append(row)
+    # the pool gather: no TPU kernel behind it (the JAX permute is XLA's
+    # gather); one launch a compact wave on the main path
+    pk = report["phase14"]["sizes"][str(P_PERMUTE[0])]
+    kernels.append({
+        "name": "pool_gather", "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/permute.cu",
+        "replaces": "tpu_pathtracer/tracer/regen.py:_compact",
+        "launches": launches["pool_gather"], "max_abs_err": 0.0,
+        "ms": min(pk["kernel_ms"]),
+        "plain_ms": min(pk["plain_ms"]), "bound_ms": pk["bound_ms"],
+        "bound_by": "bytes", "library_ms": min(pk["library_ms"])})
+    assert kernels[-1]["launches"] > 0, kernels[-1]
     report["kernels"] = kernels
     report["card"] = card
     report["total_s"] = time.time() - t_start

@@ -1,5 +1,6 @@
 """The CUDA kernels (traversal, step-counting traversal, row gather and
-scatter, the shade kernel, the surface fetches, the viewer's image)
+scatter, the shade kernel, the surface fetches, the viewer's image, the
+compaction permute's pool gather)
 against their plain PyTorch versions, on the card, and the render
 paths that launch them (media, BSSRDF, bounce, chunks and shards, the regen
 orders, the dup_stage hook, the device tonemap and the viewer's session,
@@ -23,7 +24,9 @@ values no caller reads), and renders with it equal renders with the plain
 shade bit for bit under deterministic algorithms. The surface fetch
 kernels equal their plain versions bit for bit in every output on every
 lane, a NaN equal to a NaN, and so do renders with them. The image
-kernel gives the plain host path's bytes (pure data movement).
+kernel gives the plain host path's bytes (pure data movement), and so
+does the pool gather its plain version's, in every column, and renders
+with it the plain version's.
 """
 import functools
 
@@ -38,9 +41,11 @@ from tpu_pathtracer_torch.ops import dma_rows
 from tpu_pathtracer_torch.ops import shade as shade_ops
 from tpu_pathtracer_torch.ops import surface_fetch
 from tpu_pathtracer_torch.ops import image as image_ops
+from tpu_pathtracer_torch.ops import permute as permute_ops
 from torch_shade_inputs import mixed_inputs, kernel_args, plain_shade
 from torch_fetch_inputs import (
     kernel_inputs, run_plain, differing_lanes, plain_fetch)
+import torch_permute_inputs as permute_inputs
 
 torch.set_num_threads(2)
 RAY_MIN, RAY_MAX = 1e-4, 1e20
@@ -1433,6 +1438,158 @@ def test_renders_with_the_fetch_kernels_equal_the_plain_versions(
                     (integrator != "bounce"), moved
                 assert (moved["texture_radiance"] > 0) == \
                     (integrator != "regen"), moved
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(imgs["kernel"], imgs["plain"])
+
+
+# ---- the compaction permute's pool gather (csrc/permute.cu) ----
+
+def _pool_equal(got, want):
+    """Every pool column bit for bit (floats as their int32 bits)."""
+    for k in want:
+        assert torch.equal(permute_inputs.bits(got[k]),
+                           permute_inputs.bits(want[k])), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", permute_inputs.ALIASES)
+@pytest.mark.parametrize("P", [1, 1000, 65536, 518400, 1 << 20])
+def test_pool_gather_kernel_matches_plain_on_card(device, P, alias):
+    """The kernel = pool_gather_plain in every column, bit for bit, at the
+    CLI cells' pool (2^20, 2^16), the preview's (518,400) and ragged
+    sizes, with every column's edge values and the sources that share
+    memory with the pool (pixel; L; lbn and medium_id); one launch."""
+    st, args = permute_inputs.pool_inputs(P, 70 + P % 13, device, alias)
+    st2, args2 = permute_inputs.clone_case(st, args)
+    before = permute_ops.LAUNCHES["pool_gather"]
+    permute_ops.pool_gather(st, *args)
+    permute_ops.pool_gather_plain(st2, *args2)
+    torch.cuda.synchronize()
+    assert permute_ops.LAUNCHES["pool_gather"] == before + 1
+    _pool_equal(st, st2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", permute_inputs.ALIASES)
+def test_pool_gather_dup_launches_twice_with_the_same_bits(device, alias):
+    """dup (dup_stage="permute") launches the kernel twice and writes the
+    bits of one launch and of the plain version's dup."""
+    st, args = permute_inputs.pool_inputs(4096, 71, device, alias)
+    st2, args2 = permute_inputs.clone_case(st, args)
+    st3, args3 = permute_inputs.clone_case(st, args)
+    before = permute_ops.LAUNCHES["pool_gather"]
+    permute_ops.pool_gather(st, *args, dup=True)
+    assert permute_ops.LAUNCHES["pool_gather"] == before + 2
+    permute_ops.pool_gather_plain(st2, *args2, dup=True)
+    permute_ops.pool_gather(st3, *args3)
+    torch.cuda.synchronize()
+    _pool_equal(st, st2)
+    _pool_equal(st, st3)
+
+
+@pytest.mark.cuda
+def test_pool_gather_bare_launch_equals_the_wrapper_and_counts_nothing(
+        device):
+    """launch_fn launched twice (the pool's pixel and L columns copied once
+    before, and kept while the cache is emptied): the wrapper's bits; no
+    count."""
+    st, args = permute_inputs.pool_inputs(65536 + 3, 72, device, "wave")
+    st2, args2 = permute_inputs.clone_case(st, args)
+    permute_ops.pool_gather(st2, *args2)
+    before = dict(permute_ops.LAUNCHES)
+    launch = permute_ops.launch_fn(st, *args)
+    torch.cuda.empty_cache()
+    for _ in range(2):
+        launch()
+        torch.cuda.synchronize()
+        _pool_equal(st, st2)
+    assert permute_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_pool_gather_refused_calls_raise(device, monkeypatch):
+    """A wrong dtype, a tensor on another device or a strided pool column:
+    ValueError before any launch; a nonzero code from the C entry:
+    RuntimeError. Nothing is counted or written."""
+    st, args = permute_inputs.pool_inputs(256, 73, device)
+    want = {k: v.clone() for k, v in st.items()}
+    before = dict(permute_ops.LAUNCHES)
+    src, rest = args[0], args[1:]
+    with pytest.raises(ValueError, match="dtype"):
+        permute_ops.pool_gather(st, src.int(), *rest)
+    with pytest.raises(ValueError, match="cpu"):
+        permute_ops.pool_gather(st, src, rest[0].cpu(), *rest[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        permute_ops.pool_gather(dict(st, L=st["L"].t().contiguous().t()),
+                                *args)
+    monkeypatch.setattr(permute_ops, "_kernel", lambda: (lambda *a: 7))
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        permute_ops.pool_gather(st, *args)
+    torch.cuda.synchronize()
+    assert permute_ops.LAUNCHES == before
+    _pool_equal(st, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", permute_inputs.ALIASES)
+def test_pool_gather_replays_in_a_cuda_graph(device, alias):
+    """The wrapper captured in a CUDA graph (the aliased sources' copies
+    and the launch) and replayed on new inputs copied into the captured
+    ones: the plain version's bits on the new inputs; counted at the
+    capture only."""
+    P = 4096
+    st, args = permute_inputs.pool_inputs(P, 74, device, alias)
+    permute_ops.pool_gather(st, *args)                    # warm-up
+    torch.cuda.synchronize()
+    before = permute_ops.LAUNCHES["pool_gather"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        permute_ops.pool_gather(st, *args)
+    assert permute_ops.LAUNCHES["pool_gather"] == before + 1
+    owned = {a.data_ptr() for a in st.values()}
+    for seed in (75, 76):
+        st_new, args_new = permute_inputs.pool_inputs(P, seed, device, alias)
+        for k in st:
+            st[k].copy_(st_new[k])
+        for a, b in zip(args, args_new):
+            if a.data_ptr() not in owned:
+                a.copy_(b)
+        want, want_args = permute_inputs.clone_case(st, args)
+        permute_ops.pool_gather_plain(want, *want_args)
+        graph.replay()
+        torch.cuda.synchronize()
+        _pool_equal(st, want)
+    assert permute_ops.LAUNCHES["pool_gather"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "media"])
+def test_renders_with_the_pool_gather_kernel_equal_the_plain_version(
+        device, case, monkeypatch):
+    """A replayed regen render with the kernel (one launch every compact
+    wave) equals the eager render with pool_gather_plain bit for bit,
+    under torch's deterministic algorithms, on the TestObj demo and its
+    media variant."""
+    from tpu_pathtracer_torch.tracer import device_loop, regen
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        imgs = {}
+        for mode in ("kernel", "plain"):
+            r, rc = _graph_case(case, device)
+            if mode == "plain":
+                monkeypatch.setattr(regen, "pool_gather",
+                                    permute_ops.pool_gather_plain)
+                with device_loop.no_graphs():
+                    imgs[mode] = r.render_frames(r.zeros_accum(), rc, 1, 2)
+                monkeypatch.undo()
+            else:
+                r.render_frames(r.zeros_accum(), rc, 1, 2)   # captures
+                before = permute_ops.LAUNCHES["pool_gather"]
+                imgs[mode] = r.render_frames(r.zeros_accum(), rc, 1, 2)
+                moved = permute_ops.LAUNCHES["pool_gather"] - before
+                waves = sum(r.regen_integrator(False).last_waves.values())
+                assert moved == waves > 0, (moved, waves)
     finally:
         torch.use_deterministic_algorithms(False)
     assert torch.equal(imgs["kernel"], imgs["plain"])

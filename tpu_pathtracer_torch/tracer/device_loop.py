@@ -68,11 +68,12 @@ def graphs_enabled(device):
 def _count_tables():
     """The launch counts a step's kernels add to: the traversal's
     (ops.traverse_packet.LAUNCHES, FORM_LAUNCHES), the shade kernel's
-    (ops.shade.LAUNCHES) and the surface fetches'
-    (ops.surface_fetch.LAUNCHES)."""
-    from ..ops import shade, surface_fetch, traverse_packet as tp
+    (ops.shade.LAUNCHES), the surface fetches'
+    (ops.surface_fetch.LAUNCHES) and the pool gather's
+    (ops.permute.LAUNCHES)."""
+    from ..ops import permute, shade, surface_fetch, traverse_packet as tp
     return tp.LAUNCHES, tp.FORM_LAUNCHES, shade.LAUNCHES, \
-        surface_fetch.LAUNCHES
+        surface_fetch.LAUNCHES, permute.LAUNCHES
 
 
 def launch_counts():

@@ -38,10 +38,10 @@ dead lanes and the lanes past the live prefix last), so the live lanes are
 always the exact prefix [0, alive). The extension trace takes that prefix
 as a 0-d int32 device tensor, which the traversal kernel reads from device
 memory; every other stage takes the live mask. regen_permute="gather"
-moves the pool by one row gather of its packed columns; "sort" carries the
-vector state (orig, dir, mask, L) as per-channel planes [3,P] and moves
-every plane and column by the same stable sort order, with the same bits
-as "gather".
+moves every pool column by one gather (ops/permute.py: pool_gather, one
+kernel launch a wave on the card); "sort" carries the vector state (orig,
+dir, mask, L) as per-channel planes [3,P] and moves every plane and
+column by the same stable sort order, with the same bits as "gather".
 
 regen_order="inplace": the pool is never compacted. The live set is a
 mask, traces take `active=`, and the dead lanes take the next queue
@@ -99,9 +99,11 @@ duplicate is added times zero on its bits (wavefront.plus_zero_times), so
 the image keeps its bits while the frame pays for the stage twice;
 tools/profile_frame.py --dup prices each stage so. The stages are those of
 DUP_STAGES; `scatter` duplicates each index_add_ into a scratch image that
-is then dropped, and `texture`, `shade`, `sample_env` and `shadow_trace`
-are duplicated inside wavefront.shade_hits. Under CUDA graphs a stage's
-price is device time: the host no longer dispatches each kernel.
+is then dropped, `permute` on the card launches the pool gather twice
+(the second writes the same bits), and `texture`, `shade`, `sample_env`
+and `shadow_trace` are duplicated inside wavefront.shade_hits. Under CUDA
+graphs a stage's price is device time: the host no longer dispatches each
+kernel.
 """
 from __future__ import annotations
 
@@ -112,8 +114,9 @@ import functools
 import torch
 
 from ..core.vecmath import RAY_MIN, RAY_MAX
-from ..core.rng import RaySampler, wang_hash, MASK32
+from ..core.rng import RaySampler, wang_hash
 from ..ops.marks import stage_marker
+from ..ops.permute import pool_gather
 from . import device_loop
 from .medium import medium_interaction
 from .wavefront import (
@@ -136,8 +139,8 @@ COUNTERS = ("medium_lanes", "medium_scatters")
 def _check_settings(settings: RenderSettings):
     if settings.regen_order == "compact" and settings.bounce_max > 127:
         raise ValueError("regen_order='compact' requires bounce_max <= 127 "
-                         "(bounce rides a 7-bit field of the packed "
-                         "permute column)")
+                         "(bounce rides a 7-bit field of the permute's "
+                         "packed word, ops/permute.py)")
     if settings.regen_order not in ("compact", "inplace"):
         raise ValueError("unknown regen_order %r (want compact/inplace)"
                          % (settings.regen_order,))
@@ -499,27 +502,14 @@ def _compact(cfg, st, o, d, m, pdf_new, ell, r, lb, bn, mid, last,
                      ("medium_id", mid)):
             st[k].copy_(move(v))
         return
-    # one row gather moves the packed pool; int32 bits:
-    # orig 0:3 | dir 3:6 | mask 6:9 | bsdf_pdf 9 | L 10:13 |
-    # rng 13 | pixel 14 | lbn + bounce<<8 + (medium_id+1)<<16 15
+    # one gather moves every pool column (ops/permute.py): the kernel on
+    # the card, the packed (P,16) cat, row gather and split on the CPU;
+    # the kernel takes contiguous columns (.contiguous() returns those as
+    # they are)
     src = torch.argsort(key, stable=True)
-    pmat = torch.cat([
-        o.view(torch.int32), d.view(torch.int32), m.view(torch.int32),
-        pdf_new[:, None].contiguous().view(torch.int32),
-        ell.view(torch.int32), r.to(torch.int32)[:, None],
-        st["pixel"].to(torch.int32)[:, None],
-        (lb | (bn << 8) | ((mid + 1) << 16))[:, None]], dim=1)
-    pmat = (plus_zero_times(pmat[src], pmat[src])
-            if dup == "permute" else pmat[src])
-    for k, a, b in (("orig", 0, 3), ("dir", 3, 6), ("mask", 6, 9),
-                    ("L", 10, 13)):
-        st[k].view(torch.int32).copy_(pmat[:, a:b])
-    st["bsdf_pdf"].view(torch.int32).copy_(pmat[:, 9])
-    torch.bitwise_and(pmat[:, 13].to(torch.int64), MASK32, out=st["rng"])
-    st["pixel"].copy_(pmat[:, 14])
-    torch.bitwise_and(pmat[:, 15], 0xFF, out=st["lbn"])
-    torch.bitwise_and(pmat[:, 15] >> 8, 0xFF, out=st["bounce"])
-    torch.sub(pmat[:, 15] >> 16, 1, out=st["medium_id"])
+    pool_gather(st, src, *(t.contiguous() for t in (
+        o, d, m, ell, pdf_new, r, st["pixel"], lb, bn, mid)),
+        dup=dup == "permute")
 
 
 class RegenIntegrator:

@@ -77,8 +77,8 @@ back to the CPU. Phases, each fatal on failure:
    where the BSSRDF probes launch row 3 through bounce; (8c) bounce in 4
    lane chunks and in 2 shards on the one card equal the whole frame bit
    for bit, 2 regen shards equal it under the gate statistics; (8d)
-   regen_order="inplace" against "compact" under the gate statistics and
-   regen_permute="sort" against "gather" bit for bit, at 1024x1024, 2 spp;
+   regen_order="inplace" against "compact" under the gate statistics, and
+   the frame time of each, at 1024x1024, 2 spp;
    (8e) the CLI, python -m tpu_pathtracer_torch.tools.render, renders the
    demo at 256x256 to a PPM with a checkpoint at 8 spp, then resumes it to
    16 spp;
@@ -89,22 +89,17 @@ back to the CPU. Phases, each fatal on failure:
    the launch counts set to 0 before and read after; the image after the
    last reset held to Renderer.render_frames of the same camera and frames
    under the gate statistics, and the device tonemap to the host tonemap
-   of the same accumulation within one uint8 step; (9b)
-   tools/probe_viewer.py at 1080p (previews at div 2, 4, 8, the 1-spp
-   frame, batch 4); (9c) tools/showcase_1080p.py at 8 spp to a PPM; (9d)
-   tools/gallery.py, every variant at 128x128, 4 spp, to PPMs; (9e)
+   of the same accumulation within one uint8 step; (9c)
+   tools/showcase_1080p.py at 8 spp to a PPM; (9d) tools/gallery.py,
+   every variant at 128x128, 4 spp, to PPMs; (9e)
    tools/profile_frame.py's marginal profile (op table, category rollup,
    device busy time, and the idle share of the frame timed without the
    profiler) of TestObj regen, the sss regen and the TestObj bounce
-   frames at 1024x1024, frames (1, 3); (9f) the price of each of the ten
-   dup_stage stages on TestObj at 1024x1024: its marginal over frames
-   (1, 3) (2 spp) minus the undoubled one, the sets in turns (none, each
-   stage, each stage backwards, none), then every doubled image of 3 spp
-   held to the undoubled one bit for bit under torch's deterministic
-   algorithms; (9g) the viewer's image kernel (csrc/image.cu, one launch
-   a viewer step, counted in 9a) at 960x540 with a 2x upscale and at
-   1920x1080 without: the plain version's bytes, the bare launch and the
-   plain version timed in turns beside the byte bound;
+   frames at 1024x1024, frames (1, 3); (9g) the viewer's image kernel
+   (csrc/image.cu, one launch a viewer step, counted in 9a) at 960x540
+   with a 2x upscale and at 1920x1080 without: the plain version's
+   bytes, the bare launch and the plain version timed in turns beside
+   the byte bound;
 10. the regen frame as one device program (tracer/regen.py: fixed-width
    waves with device-side counts, each captured once as a CUDA graph and
    replayed; phases 4-9 above already run this way): (10a) on TestObj and
@@ -170,8 +165,8 @@ back to the CPU. Phases, each fatal on failure:
    and 518,400 rows (the CLI cells' pool, the 960x540 preview's), with
    NaN, infinities, -0.0, bsdf_pdf -1, rng with its high bits set, lbn
    and bounce 0 and 127, medium_id -1 and 32766, under each aliasing of
-   the wave (the pool's pixel; L too; lbn and medium_id too), once and
-   with dup, the kernel equals its plain version (ops/permute.py) in
+   the wave (the pool's pixel; L too; lbn and medium_id too), the kernel
+   equals its plain version (ops/permute.py) in
    every column bit for bit; the bare launch, the wrapper as a wave runs
    it (captured), the plain version and the old cat, gather and split
    captured (library_ms), in turns, beside the byte bound (168 B a row);
@@ -662,14 +657,12 @@ def measure_ab(root):
     (integrator="bounce", in the port since its bounce slice), the capture
     time where the checkout captures, max_memory_allocated, and the bare
     traversal launch on 1M coherent camera rays (closest hit over the whole
-    int prefix; any hit under a 50% mask) with ptxas's registers; the
-    dup_stage prices of the TestObj regen frame (profile_frame.price_stages
-    of that checkout's stages, frames (1, 3), as phase 9f), and, where the
-    checkout has the shade kernel (ops/shade.py), its bare launch and the
-    plain shade at P_SHADE lanes of every material, and where it has the
-    surface fetch kernels (ops/surface_fetch.py), their bare launches and
-    plain versions at P_FETCH lanes (phase 13a's inputs). Returns the
-    record."""
+    int prefix; any hit under a 50% mask) with ptxas's registers, and,
+    where the checkout has the shade kernel (ops/shade.py), its bare launch
+    and the plain shade at P_SHADE lanes of every material, and where it
+    has the surface fetch kernels (ops/surface_fetch.py), their bare
+    launches and plain versions at P_FETCH lanes (phase 13a's inputs).
+    Returns the record."""
     import dataclasses
     import statistics
     import numpy as np
@@ -728,14 +721,6 @@ def measure_ab(root):
         {k: sp[k] for k in ("frames", "window_ms", "busy_ms", "idle_share")}
         for sp in (lo, hi)]}
     del rb
-    from tpu_pathtracer_torch.tracer.regen import DUP_STAGES
-    rp = Renderer(parts[0], parts[1], envmap=parts[2], texture=parts[3],
-                  width=W, height=W, base_scene=r.scene, device=dev)
-    prices = profile_frame.price_stages(rp, rc, DUP_STAGES, (1, 3))
-    rec["dup_prices"] = {k: {"price_ms": v["price_ms"],
-                             "bit_equal": v["bit_equal"]}
-                         for k, v in prices.items()}
-    del rp
     torch.cuda.empty_cache()
     rec["shade_kernel"] = None
     if os.path.exists(os.path.join(rec["package"], "ops", "shade.py")):
@@ -938,28 +923,13 @@ def phase8(np, torch, ops, dev, fb, mats, envmap, texture, sss_parts, rc,
                                                      regen_order="inplace"))
     in_gate = gate(np, inplace.cpu().numpy() / 2, compact.cpu().numpy() / 2,
                    "inplace/compact")
-    # CUDA's index_add_ adds a pixel's two samples in no fixed order when
-    # both die in one wave; the bit-for-bit pair runs under torch's
-    # deterministic index_add_, which adds in index order
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        gather_img, t_gather = frames2(regen_s)
-        sort_img, t_sort = frames2(dataclasses.replace(regen_s,
-                                                       regen_permute="sort"))
-    finally:
-        torch.use_deterministic_algorithms(False)
-    assert torch.equal(sort_img, gather_img), "sort != gather"
     rec["orders"] = {"compact_ms_per_frame": t_compact / 2,
                      "inplace_ms_per_frame": t_inplace / 2,
-                     "inplace_gate": in_gate,
-                     "gather_deterministic_ms_per_frame": t_gather / 2,
-                     "sort_deterministic_ms_per_frame": t_sort / 2,
-                     "sort_bit_for_bit": True}
-    log("  8d ms per frame: compact %.1f, inplace %.1f; under deterministic "
-        "index_add_: gather %.1f, sort %.1f (bit for bit)"
-        % (t_compact / 2, t_inplace / 2, t_gather / 2, t_sort / 2))
+                     "inplace_gate": in_gate}
+    log("  8d ms per frame: compact %.1f, inplace %.1f"
+        % (t_compact / 2, t_inplace / 2))
     r.settings = regen_s
-    del r, compact, inplace, gather_img, sort_img
+    del r, compact, inplace
     torch.cuda.empty_cache()
 
     # ---- 8e. the CLI, to a PPM, checkpointed, then resumed ----
@@ -1010,9 +980,9 @@ def viewer_script(keys, env_keys):
 
 
 def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
-    """Phase 9: the viewer (9a) and probe_viewer (9b) at a 1080p window,
-    the showcase (9c), the gallery (9d), the profiles (9e) and the
-    dup_stage prices (9f), the last two at W x W. parts / sss_parts:
+    """Phase 9: the viewer (9a) at a 1080p window, the showcase (9c), the
+    gallery (9d), the profiles (9e) at W x W and the viewer's image kernel
+    (9g). parts / sss_parts:
     (flat_bvh, materials, envmap, texture) of TestObj and the sss scene.
     Returns the record."""
     import dataclasses
@@ -1022,10 +992,9 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
     from tpu_pathtracer_torch.ops import image as image_ops
     from tpu_pathtracer_torch.scene import demo
     from tpu_pathtracer_torch.tracer.renderer import Renderer, lane_tables
-    from tpu_pathtracer_torch.tracer.regen import DUP_STAGES
     from tpu_pathtracer_torch.utils.timing import cuda_ms
     from tpu_pathtracer_torch.tools import (
-        interactive, probe_viewer, showcase_1080p, gallery, profile_frame)
+        interactive, showcase_1080p, gallery, profile_frame)
     from tpu_pathtracer_torch.tools.render import _save_image
     fb, mats, envmap, texture = parts
     rec = {}
@@ -1047,26 +1016,25 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
         torch.cuda.synchronize()
         zero_counts()
         image_launches = image_ops.LAUNCHES["unswizzle_upscale"]
-        times = {"preview": [], "full": []}
+        steps = {"preview": 0, "full": 0}
         for events, dt in viewer_script(interactive.KEYS,
                                         interactive.ENV_KEYS):
-            t0 = time.perf_counter()
             img = sess.step(events)
-            times[sess.kind].append((time.perf_counter() - t0) * 1e3)
+            steps[sess.kind] += 1
             assert img.shape == (VH, VW, 3) and img.dtype == np.uint8
             clock[0] += dt
         viewer_launches = read_counts()
         viewer_launches["unswizzle_upscale"] = \
             image_ops.LAUNCHES["unswizzle_upscale"] - image_launches
         assert viewer_launches["unswizzle_upscale"] == sum(
-            map(len, times.values())), "not one image launch a step"
+            steps.values()), "not one image launch a step"
         assert sess.step(["q"]) is None
         for k in ("traverse_closest", "traverse_anyhit", "shade",
                   "fetch_attributes", "env_tex_merged"):
             assert viewer_launches[k] > 0, "the viewer never launched " + k
         assert sess.kind == "full" and sess.frame == 4 * batch, sess.frame
-        assert len(times["preview"]) == len(interactive.KEYS) + len(
-            interactive.ENV_KEYS) + 5, times
+        assert steps["preview"] == len(interactive.KEYS) + len(
+            interactive.ENV_KEYS) + 5, steps
         want = r.render_frames(r.zeros_accum(), sess.camera, 1, sess.frame)
         v_gate = gate(np, r.accum_to_buffer(sess.accum) / sess.frame,
                       r.accum_to_buffer(want) / sess.frame,
@@ -1075,48 +1043,23 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
         host_img = r.accum_to_image(sess.accum.cpu().numpy(), sess.frame)
         d = np.abs(dev_img.astype(np.int32) - host_img.astype(np.int32))
         assert int(d.max()) <= 1, "device tonemap off by %d" % d.max()
-        t0 = time.perf_counter()
         sess.close()
-        close_s = time.perf_counter() - t0
         assert read_ppm(os.path.join(tmp, "output500.ppm")).shape == \
             (VH, VW, 3)
-        med = {k: float(np.median(v)) for k, v in times.items()}
         rec["viewer"] = {
             "window": [VW, VH], "preview": [lo.width, lo.height],
-            "batch": batch, "step_ms": times, "median_step_ms": med,
+            "batch": batch, "steps": steps,
             "launches": viewer_launches, "gate_vs_render": v_gate,
             "tonemap_max_step": int(d.max()),
-            "tonemap_pixels_differing": int((d.max(axis=2) > 0).sum()),
-            "output500_s": close_s}
-        log("  9a viewer %dx%d: %d preview steps (%dx%d), median %.1f ms; "
-            "%d full steps of %d spp, median %.1f ms; launches %s; device "
-            "tonemap = host within %d step, %d pixels differ; output500.ppm "
-            "in %.1f s" % (VW, VH, len(times["preview"]), lo.width,
-                           lo.height, med["preview"], len(times["full"]),
-                           batch, med["full"],
-                           {k: v for k, v in viewer_launches.items() if v},
-                           d.max(), rec["viewer"]["tonemap_pixels_differing"],
-                           close_s))
+            "tonemap_pixels_differing": int((d.max(axis=2) > 0).sum())}
+        log("  9a viewer %dx%d: %d preview steps (%dx%d), %d full steps of "
+            "%d spp; launches %s; device tonemap = host within %d step, %d "
+            "pixels differ; output500.ppm written"
+            % (VW, VH, steps["preview"], lo.width, lo.height, steps["full"],
+               batch, {k: v for k, v in viewer_launches.items() if v},
+               d.max(), rec["viewer"]["tonemap_pixels_differing"]))
         del sess, lo, r, want
         torch.cuda.empty_cache()
-
-        # ---- 9b. probe_viewer at 1080p ----
-        pv = probe_viewer.probe(parts, VIEWER_H, dev, reps=3)
-        # the same measure of a W x W 1-spp frame, for the 1080p ratio
-        sq = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
-                      height=W, device=dev)
-        sq_rc = demo.default_camera(W, W).build_render_camera()
-        pv["square_ms"] = probe_viewer.median_ms(
-            lambda: sq.accum_to_image(sq.render_frames(
-                sq.zeros_accum(), sq_rc, 1, 1), 1), 5)
-        pv["full_over_square"] = pv["full_ms"] / pv["square_ms"]
-        del sq
-        for line in probe_viewer.report(pv):
-            log("  9b " + line)
-        log("  9b %dx%d 1-spp frame %.1f ms: the %dx%d frame is %.2fx it"
-            % (W, W, pv["square_ms"], pv["width"], pv["height"],
-               pv["full_over_square"]))
-        rec["probe_viewer"] = pv
 
         # ---- 9c. the 1080p showcase, 8 spp, to a PPM ----
         out = os.path.join(tmp, "showcase.ppm")
@@ -1188,24 +1131,6 @@ def phase9(np, torch, ops, dev, parts, sss_parts, cache, W):
                 "s": time.perf_counter() - t0}
             del pr
             torch.cuda.empty_cache()
-
-        # ---- 9f. the ten dup_stage prices ----
-        pr = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
-                      height=W, device=dev)
-        t0 = time.perf_counter()
-        prices = profile_frame.price_stages(pr, rc, DUP_STAGES, (1, 3))
-        for stage, p in prices.items():
-            log("  9f dup %-12s price %+8.2f ms/frame (with %s, without %s "
-                "ms); bit for bit: %s"
-                % (stage, p["price_ms"],
-                   "/".join("%.1f" % x for x in p["dup_ms"]),
-                   "/".join("%.1f" % x for x in p["none_ms"]),
-                   p["bit_equal"]))
-            assert p["bit_equal"], (stage, "dup_stage moved the image")
-        rec["dup_prices"] = {"frames": [1, 3], "stages": prices,
-                             "s": time.perf_counter() - t0}
-        del pr
-        torch.cuda.empty_cache()
 
         # ---- 9g. the viewer's image kernel ----
         # kernel ms: 100 bare launches replayed as one CUDA graph, so the
@@ -2083,28 +2008,24 @@ def phase14(np, torch, dev, scenes, W):
     for P in P_PERMUTE:
         row = {"differing_rows": {}}
         for alias in inputs.ALIASES:
-            for dup in (False, True):
-                st, args = inputs.pool_inputs(P, 140 + len(alias), dev,
-                                              alias)
-                st2, args2 = inputs.clone_case(st, args)
-                before = permute.LAUNCHES["pool_gather"]
-                permute.pool_gather(st, *args, dup=dup)
-                permute.pool_gather_plain(st2, *args2, dup=dup)
-                torch.cuda.synchronize()
-                assert permute.LAUNCHES["pool_gather"] == \
-                    before + (2 if dup else 1)
-                differ = {k: int((inputs.bits(st[k]) != inputs.bits(
-                    st2[k])).reshape(P, -1).any(1).sum()) for k in st}
-                row["differing_rows"]["%s%s" % (alias, "_dup" * dup)] = \
-                    differ
-                assert not any(differ.values()), (P, alias, dup, differ)
-                del st, args, st2, args2
+            st, args = inputs.pool_inputs(P, 140 + len(alias), dev, alias)
+            st2, args2 = inputs.clone_case(st, args)
+            before = permute.LAUNCHES["pool_gather"]
+            permute.pool_gather(st, *args)
+            permute.pool_gather_plain(st2, *args2)
+            torch.cuda.synchronize()
+            assert permute.LAUNCHES["pool_gather"] == before + 1
+            differ = {k: int((inputs.bits(st[k]) != inputs.bits(
+                st2[k])).reshape(P, -1).any(1).sum()) for k in st}
+            row["differing_rows"][alias] = differ
+            assert not any(differ.values()), (P, alias, differ)
+            del st, args, st2, args2
         # the main path's case: only the pool's pixel column aliased
         st, args = inputs.pool_inputs(P, 150, dev)
         row.update(time_pool_gather(torch, permute, st, args))
         rec["sizes"][str(P)] = row
         log("  14a pool gather at %d rows: = plain version bit for bit "
-            "(3 aliasings, once and dup); a random order: %s"
+            "(3 aliasings); a random order: %s"
             % (P, pool_gather_times_line(row)))
         del st, args
         torch.cuda.empty_cache()
@@ -2117,11 +2038,11 @@ def phase14(np, torch, dev, scenes, W):
     seen = []
     saved = regen.pool_gather
 
-    def record(st, src, *sources, dup=False):
+    def record(st, src, *sources):
         seen.append(src.shape[0])
         if len(seen) == 3:
             rec["wave_inputs"] = inputs.clone_case(st, (src,) + sources)
-        saved(st, src, *sources, dup=dup)
+        saved(st, src, *sources)
     regen.pool_gather = record
     try:
         with device_loop.no_graphs():
@@ -2723,8 +2644,6 @@ def main():
         "testobj": (fb, mats, envmap, texture),
         "sss": big_scenes["organic_sss"],
         "media": big_scenes["organic_media"]}, W)
-    report["phase10"]["viewer_preview_ms"] = \
-        report["phase9"]["viewer"]["median_step_ms"]["preview"]
     # the idle share of whole profiled calls (busy and window from one
     # trace); under graphs the marginal readings (busy over the marginal
     # window, or over the frame timed without the profiler) are no idle

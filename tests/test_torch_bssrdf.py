@@ -33,6 +33,7 @@ from tpu_pathtracer_torch.tracer import bssrdf_shade as tshade
 from tpu_pathtracer_torch.tracer.renderer import Renderer
 from tpu_pathtracer_torch.tracer.wavefront import (
     RenderSettings, gather_material)
+from torch_settings import port_fields
 
 torch.set_num_threads(2)
 # The first MKL-backed call (torch.sqrt) on a fresh CPU pool thread can
@@ -292,7 +293,7 @@ def test_organic_sss_matches_jax_render():
                    height=W)
     tr = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
                   height=W, device="cpu")
-    assert dataclasses.asdict(tr.settings) == dataclasses.asdict(jr.settings)
+    assert port_fields(tr.settings) == port_fields(jr.settings)
     assert tr.settings.has_bssrdf and tr.settings.packet_tile_sub == 32
     jacc = np.asarray(jr.render_frames(jr.zeros_accum(), rc, 1, 4))
     tacc = tr.render_frames(tr.zeros_accum(), rc, 1, 4).numpy()

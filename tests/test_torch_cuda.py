@@ -3,7 +3,7 @@ scatter, the shade kernel, the surface fetches, the viewer's image, the
 compaction permute's pool gather)
 against their plain PyTorch versions, on the card, and the render
 paths that launch them (media, BSSRDF, bounce, chunks and shards, the regen
-orders, the dup_stage hook, the device tonemap and the viewer's session,
+orders, the device tonemap and the viewer's session,
 the replayed regen and bounce frames against the eager ones, the stage
 marks of a replayed with_stats call).
 
@@ -569,33 +569,21 @@ def test_bounce_chunks_and_shards_on_card_match_the_whole(device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw", [dict(regen_order="inplace"),
-                                dict(regen_permute="sort")],
-                         ids=["inplace", "sort"])
+@pytest.mark.parametrize("kw", [dict(regen_order="inplace")],
+                         ids=["inplace"])
 def test_regen_orders_on_card(device, kw):
-    """inplace gives the compact image under the gate statistics, sort the
-    gather image bit for bit, on the card. CUDA's index_add_ adds with
-    atomics, in no fixed order where a pixel's two samples die in one
-    wave; the bit-for-bit pair runs under torch's deterministic index_add_
-    (which adds in index order) so that the order is the same in both."""
+    """inplace gives the compact image under the gate statistics on the
+    card."""
     import dataclasses
     W = 64
     rc = demo.default_camera(W, W).build_render_camera()
     r = _bounce_renderer(device, W)
     base = dataclasses.replace(r.settings, integrator="regen")
-    exact = "regen_permute" in kw
-    torch.use_deterministic_algorithms(exact, warn_only=True)
-    try:
-        r.settings = base
-        a = r.render_frames(r.zeros_accum(), rc, 1, 2)
-        r.settings = dataclasses.replace(base, **kw)
-        b = r.render_frames(r.zeros_accum(), rc, 1, 2)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    if exact:
-        assert torch.equal(a, b)
-    else:
-        _gate(r.accum_to_buffer(b), r.accum_to_buffer(a), "inplace")
+    r.settings = base
+    a = r.render_frames(r.zeros_accum(), rc, 1, 2)
+    r.settings = dataclasses.replace(base, **kw)
+    b = r.render_frames(r.zeros_accum(), rc, 1, 2)
+    _gate(r.accum_to_buffer(b), r.accum_to_buffer(a), "inplace")
 
 
 def _regen_renderer(dev, W):
@@ -620,28 +608,6 @@ def test_device_tonemap_on_card_matches_the_host_path(device, frames):
     assert dev_img.dtype == np.uint8 and dev_img.shape == (W, W, 3)
     d = np.abs(dev_img.astype(np.int32) - host.astype(np.int32))
     assert d.max() <= 1 and (d == 0).mean() >= 0.999
-
-
-@pytest.mark.cuda
-def test_dup_stages_keep_the_image_bits_on_card(device):
-    """Every dup_stage on the card gives the undoubled image bit for bit
-    under torch's deterministic algorithms (index_add_ in index order)."""
-    import dataclasses
-    from tpu_pathtracer_torch.tracer.regen import DUP_STAGES
-    W = 64
-    rc = demo.default_camera(W, W).build_render_camera()
-    r = _regen_renderer(device, W)
-    base = r.settings
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        want = r.render_frames(r.zeros_accum(), rc, 1, 2)
-        for stage in DUP_STAGES:
-            r.settings = dataclasses.replace(base, dup_stage=stage)
-            got = r.render_frames(r.zeros_accum(), rc, 1, 2)
-            assert torch.equal(got, want), stage
-    finally:
-        torch.use_deterministic_algorithms(False)
-        r.settings = base
 
 
 @pytest.mark.cuda
@@ -909,18 +875,15 @@ def _graph_case(case, device):
     r = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
                  height=W, lane_chunk=W * W // 4 if case == "chunks4"
                  else None, device=device)
-    kw = {"sort": dict(regen_permute="sort"),
-          "inplace": dict(regen_order="inplace"),
-          "dup_shade": dict(dup_stage="shade"),
+    kw = {"inplace": dict(regen_order="inplace"),
           "distant_light": dict(use_distant_light=True)}.get(case, {})
     r.settings = dataclasses.replace(r.settings, **kw)
     return r, demo.default_camera(W, W).build_render_camera()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["default", "sort", "inplace", "media",
-                                  "bssrdf", "distant_light", "dup_shade",
-                                  "chunks4"])
+@pytest.mark.parametrize("case", ["default", "inplace", "media",
+                                  "bssrdf", "distant_light", "chunks4"])
 def test_graph_frame_equals_no_graphs_bit_for_bit(device, case):
     """The replayed regen frame equals the eager one
     (device_loop.no_graphs()) bit for bit under torch's deterministic
@@ -1468,24 +1431,6 @@ def test_pool_gather_kernel_matches_plain_on_card(device, P, alias):
     torch.cuda.synchronize()
     assert permute_ops.LAUNCHES["pool_gather"] == before + 1
     _pool_equal(st, st2)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("alias", permute_inputs.ALIASES)
-def test_pool_gather_dup_launches_twice_with_the_same_bits(device, alias):
-    """dup (dup_stage="permute") launches the kernel twice and writes the
-    bits of one launch and of the plain version's dup."""
-    st, args = permute_inputs.pool_inputs(4096, 71, device, alias)
-    st2, args2 = permute_inputs.clone_case(st, args)
-    st3, args3 = permute_inputs.clone_case(st, args)
-    before = permute_ops.LAUNCHES["pool_gather"]
-    permute_ops.pool_gather(st, *args, dup=True)
-    assert permute_ops.LAUNCHES["pool_gather"] == before + 2
-    permute_ops.pool_gather_plain(st2, *args2, dup=True)
-    permute_ops.pool_gather(st3, *args3)
-    torch.cuda.synchronize()
-    _pool_equal(st, st2)
-    _pool_equal(st, st3)
 
 
 @pytest.mark.cuda

@@ -178,14 +178,15 @@ def _renderer(W, variant="default", **kw):
 
 @pytest.mark.parametrize("variant,kw", [
     ("default", {}),
-    ("default", dict(regen_permute="sort")),
     ("default", dict(regen_order="inplace")),
     ("media", {}),
     ("subsurface", {}),
     ("default", dict(use_distant_light=True)),
-    ("default", dict(dup_stage="shade")),
-], ids=["default", "sort", "inplace", "media", "bssrdf", "distant_light",
-        "dup_shade"])
+    ("default", dict(scatter_mode="wave")),
+    ("default", dict(merge_envtex=False)),
+    ("default", dict(pool_lanes=64)),
+], ids=["default", "inplace", "media", "bssrdf", "distant_light", "wave",
+        "unmerged_envtex", "capped_pool"])
 def test_wave_makes_no_host_read(no_host_reads, variant, kw):
     r, rc = _renderer(12, variant, **kw)
     acc, waves, rays = r.render_frames(r.zeros_accum(), rc, 1, 1,
@@ -207,14 +208,17 @@ def _bits(st):
             for k, v in st.items() if isinstance(v, torch.Tensor)}
 
 
-@pytest.mark.parametrize("kw,stop", [
-    ({}, 0), (dict(regen_permute="sort"), 0), (dict(regen_order="inplace"), 0),
-    (dict(scatter_mode="wave", pool_lanes=64), 0), ({}, 3),
-    (dict(regen_order="inplace"), 3)],
-    ids=["default", "sort", "inplace", "wave_narrow", "stop3",
-         "inplace_stop3"])
-def test_waves_past_the_end_change_nothing(kw, stop):
-    r, rc = _renderer(12, **kw)
+@pytest.mark.parametrize("variant,kw,stop", [
+    ("default", {}, 0), ("default", dict(regen_order="inplace"), 0),
+    ("default", dict(scatter_mode="wave", pool_lanes=64), 0),
+    ("default", {}, 3), ("default", dict(regen_order="inplace"), 3),
+    ("media", {}, 0), ("subsurface", {}, 0),
+    ("default", dict(use_distant_light=True), 0),
+    ("default", dict(merge_envtex=False), 0)],
+    ids=["default", "inplace", "wave_narrow", "stop3", "inplace_stop3",
+         "media", "bssrdf", "distant_light", "unmerged_envtex"])
+def test_waves_past_the_end_change_nothing(variant, kw, stop):
+    r, rc = _renderer(12, variant, **kw)
     fn = regen.make_regen_integrator(r.settings, 12, 12, with_stats=True,
                                      stop_after_waves=stop)
     cfg, st = fn.start(r.scene, camera_vector(rc, "cpu"), 1, 0,
@@ -417,12 +421,12 @@ def test_a_call_never_ends_on_a_stale_status(monkeypatch):
 # ---- the drain's narrower waves ----
 
 @pytest.mark.parametrize("variant,kw", [
-    ("default", {}), ("default", dict(regen_permute="sort")),
-    ("default", dict(scatter_mode="wave")), ("media", {}),
+    ("default", {}), ("default", dict(scatter_mode="wave")), ("media", {}),
     ("subsurface", {}), ("default", dict(pool_lanes=100)),
-    ("default", dict(dup_stage="permute"))],
-    ids=["default", "sort", "wave", "media", "bssrdf", "narrow_pool",
-         "dup_permute"])
+    ("default", dict(use_distant_light=True)),
+    ("default", dict(merge_envtex=False))],
+    ids=["default", "wave", "media", "bssrdf", "narrow_pool",
+         "distant_light", "unmerged_envtex"])
 def test_drain_widths_keep_the_bits(monkeypatch, variant, kw):
     """Waves over the first P/4 or P/16 lanes once the queue is spent give
     the full-width waves' image, waves and rays bit for bit."""

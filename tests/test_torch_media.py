@@ -8,7 +8,6 @@ distance, so the masks must be equal on >= 0.999 of lanes. Images are held
 to the gate statistics of bench.py:233-247 (median |diff| < 1e-4, mean
 within 1%, RMSE < 0.1): the same samples, rounding apart.
 """
-import dataclasses
 import functools
 import os
 
@@ -30,6 +29,7 @@ from tpu_pathtracer_torch.tracer.regen import make_regen_integrator
 from tpu_pathtracer_torch.tracer.renderer import Renderer
 from tpu_pathtracer_torch.tracer.wavefront import (
     RenderSettings, pack_mat_table)
+from torch_settings import port_fields
 
 torch.set_num_threads(2)
 # The first MKL-backed call (torch.sqrt) on a fresh CPU pool thread can
@@ -157,7 +157,7 @@ def test_organic_media_matches_jax_render():
     tr = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
                   height=W, device="cpu")
     # one settings object describes the render in both packages
-    assert dataclasses.asdict(tr.settings) == dataclasses.asdict(jr.settings)
+    assert port_fields(tr.settings) == port_fields(jr.settings)
     assert tr.settings.has_media and tr.settings.packet_tile_sub == 32
     jacc = np.asarray(jr.render_frames(jr.zeros_accum(), rc, 1, 4))
     tacc = tr.render_frames(tr.zeros_accum(), rc, 1, 4).numpy()

@@ -2,7 +2,8 @@
 the CPU: the plain version against the cat, row gather and split that
 tracer/regen.py: _compact did before the gather became one kernel (a
 verbatim copy below), bit for bit, on pools with the edge values of every
-column and with sources that share memory with the pool; the checks that
+column, with sources that share memory with the pool, in a random order
+and in the order a wave builds; the checks that
 the wrapper makes before any launch; and the regen renders that go
 through it.
 
@@ -23,8 +24,8 @@ from tpu_pathtracer_torch.ops import permute
 from tpu_pathtracer_torch.scene import demo
 from tpu_pathtracer_torch.tracer import device_loop, regen
 from tpu_pathtracer_torch.tracer.renderer import Renderer
-from tpu_pathtracer_torch.tracer.wavefront import plus_zero_times
-from torch_permute_inputs import ALIASES, pool_inputs, clone_case, bits
+from torch_permute_inputs import (
+    ALIASES, ORDERS, pool_inputs, clone_case, bits)
 
 torch.set_num_threads(2)
 # The first MKL-backed call (torch.sqrt) on a fresh CPU pool thread can
@@ -34,17 +35,16 @@ torch.sqrt(torch.ones(1 << 16))
 W = 16
 
 
-def _old_compact_move(dup, st, src, o, d, m, pdf_new, ell, r, lb, bn, mid):
+def _old_compact_move(st, src, o, d, m, pdf_new, ell, r, lb, bn, mid):
     """tracer/regen.py: _compact's move of the pool before ops/permute.py,
-    verbatim from `pmat = torch.cat(` on (dup: dup_stage == "permute")."""
+    verbatim from `pmat = torch.cat(` on."""
     pmat = torch.cat([
         o.view(torch.int32), d.view(torch.int32), m.view(torch.int32),
         pdf_new[:, None].contiguous().view(torch.int32),
         ell.view(torch.int32), r.to(torch.int32)[:, None],
         st["pixel"].to(torch.int32)[:, None],
         (lb | (bn << 8) | ((mid + 1) << 16))[:, None]], dim=1)
-    pmat = (plus_zero_times(pmat[src], pmat[src])
-            if dup else pmat[src])
+    pmat = pmat[src]
     for k, a, b in (("orig", 0, 3), ("dir", 3, 6), ("mask", 6, 9),
                     ("L", 10, 13)):
         st[k].view(torch.int32).copy_(pmat[:, a:b])
@@ -56,27 +56,27 @@ def _old_compact_move(dup, st, src, o, d, m, pdf_new, ell, r, lb, bn, mid):
     torch.sub(pmat[:, 15] >> 16, 1, out=st["medium_id"])
 
 
-def _old(st, src, o, d, m, ell, pdf, rng, pixel, lb, bn, mid, dup=False):
+def _old(st, src, o, d, m, ell, pdf, rng, pixel, lb, bn, mid):
     """_old_compact_move with pool_gather's arguments (pixel is
     st["pixel"], which the old code read itself)."""
     assert pixel is st["pixel"]
-    _old_compact_move(dup, st, src, o, d, m, pdf, ell, rng, lb, bn, mid)
+    _old_compact_move(st, src, o, d, m, pdf, ell, rng, lb, bn, mid)
 
 
-@pytest.mark.parametrize("dup", [False, True], ids=["once", "dup"])
+@pytest.mark.parametrize("order", ORDERS)
 @pytest.mark.parametrize("alias", ALIASES)
 @pytest.mark.parametrize("P", [1, 7, 1000, 4096])
-def test_plain_pool_gather_equals_the_old_compact(P, alias, dup):
+def test_plain_pool_gather_equals_the_old_compact(P, alias, order):
     """pool_gather on CPU tensors = the old cat, gather and split, every
     column bit for bit (NaN payloads, -0.0, infinities, bsdf_pdf -1, rng
     with its high bits set, lbn / bounce 0 and 127, medium_id -1 and its
     largest value), with the pool's pixel, L or lbn / medium_id as
-    sources; it launches nothing."""
-    st, args = pool_inputs(P, 1000 * P + len(alias), "cpu", alias)
+    sources, on a random order and on a wave's; it launches nothing."""
+    st, args = pool_inputs(P, 1000 * P + len(alias), "cpu", alias, order)
     st2, args2 = clone_case(st, args)
     before = dict(permute.LAUNCHES)
-    permute.pool_gather(st, *args, dup=dup)
-    _old(st2, *args2, dup=dup)
+    permute.pool_gather(st, *args)
+    _old(st2, *args2)
     assert permute.LAUNCHES == before
     for k in st:
         assert torch.equal(bits(st[k]), bits(st2[k])), k
@@ -151,8 +151,11 @@ def _renderer(variant):
 
 
 @pytest.mark.parametrize("variant,kw", [
-    ("default", {}), ("media", {}), ("default", {"scatter_mode": "wave"})],
-    ids=["default", "media", "wave"])
+    ("default", {}), ("media", {}), ("default", {"scatter_mode": "wave"}),
+    ("subsurface", {}), ("default", {"use_distant_light": True}),
+    ("default", {"pool_lanes": 64})],
+    ids=["default", "media", "wave", "bssrdf", "distant_light",
+         "capped_pool"])
 def test_regen_render_goes_through_pool_gather_with_the_old_bits(
         variant, kw, monkeypatch):
     """A CPU regen render calls pool_gather once a compact wave and gives

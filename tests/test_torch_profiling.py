@@ -1,13 +1,14 @@
 """utils/profiling.py on chrome traces the test writes (kernels under
 their launching ops, overlapping kernels, memcpy, negative marginals, a
-pool-width against a table-width gather), and tools/profile_frame.py run
-to its end on the CPU."""
+pool-width against a table-width gather), tools/profile_frame.py run
+to its end on the CPU, and its --stages report of a synthetic trace."""
 import json
 import types
 
 import pytest
 import torch
 
+from tpu_pathtracer_torch.ops.marks import MARK_PREFIX
 from tpu_pathtracer_torch.tools import profile_frame
 from tpu_pathtracer_torch.utils import profiling
 
@@ -164,17 +165,14 @@ def test_settings_overrides():
 
 
 def test_profile_frame_runs_on_the_cpu(capsys):
-    """--device cpu at 16x16, frames 1 2, with the shade stage priced: the
-    host op table, the rollup, no device figure, and the doubled image
-    equal to the undoubled one."""
+    """--device cpu at 16x16, frames 1 2: the host op table, the rollup
+    and no device figure."""
     assert profile_frame.main(["--device", "cpu", "--wh", "16", "--frames",
-                               "1", "2", "--top", "5", "--dup",
-                               "shade"]) == 0
+                               "1", "2", "--top", "5"]) == 0
     out = capsys.readouterr().out
     assert "host ops (cpu): marginal anatomy over 1 frames" in out
     assert "categories (ms/frame): trace" in out
     assert "device busy" not in out
-    assert "dup shade" in out and "image bit for bit: True" in out
 
 
 @pytest.mark.parametrize("kernel", [TRAV, MUL])
@@ -202,30 +200,51 @@ def test_device_profile_without_a_traversal_kernel_raises(monkeypatch,
             profile_frame.profile(r, None, (1, 2))
 
 
-def test_price_stages_times_every_stage_against_one_baseline():
-    """Two stages priced on the CPU at 8x8: each turn's marginal with and
-    without the stage, the difference of their medians, the doubled images
-    equal to the undoubled one, and the renderer's settings restored."""
-    from tpu_pathtracer_torch.scene import demo
-    from tpu_pathtracer_torch.tracer.renderer import Renderer
-    fb, mats, envmap, texture = demo.testobj_scene(cache_dir=None)
-    r = Renderer(fb, mats, envmap=envmap, texture=texture, width=8,
-                 height=8, device="cpu")
-    base = r.settings
-    rc = demo.default_camera(8, 8).build_render_camera()
-    out = profile_frame.price_stages(r, rc, ["fetch", "scatter"], (1, 2))
-    assert r.settings is base and list(out) == ["fetch", "scatter"]
-    assert out["fetch"]["none_ms"] is out["scatter"]["none_ms"]
-    for p in out.values():
-        assert len(p["none_ms"]) == len(p["dup_ms"]) == 2
-        assert p["price_ms"] == pytest.approx(
-            (sum(p["dup_ms"]) - sum(p["none_ms"])) / 2)   # medians of 2
-        assert p["bit_equal"] is True
-
-
 def test_profile_frame_refuses_unknown_stage_and_missing_card():
-    with pytest.raises(SystemExit, match="unknown stage"):
-        profile_frame.main(["--device", "cpu", "--dup", "shading"])
+    """--dup (the stage-duplication pricing) is gone: argparse refuses
+    it; without a card the default device refuses."""
+    with pytest.raises(SystemExit) as exc:
+        profile_frame.main(["--device", "cpu", "--dup", "shade"])
+    assert exc.value.code == 2
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             profile_frame.main(["--wh", "16"])
+
+
+def test_profile_frame_stages_refuses_the_cpu():
+    """The CPU's stage marks carry no device time: --stages on the CPU
+    exits naming the card before it builds anything."""
+    with pytest.raises(SystemExit, match="only on a CUDA card"):
+        profile_frame.main(["--device", "cpu", "--wh", "8", "--stages"])
+
+
+def _mark_ev(name, ts, dur):
+    return {"ph": "X", "cat": "kernel", "name": name, "ts": float(ts),
+            "dur": float(dur), "pid": 0, "tid": 7, "args": {}}
+
+
+def test_stage_report_reads_the_marks_of_a_synthetic_trace():
+    """--stages' lines from stage_device_ms of a trace of two waves over 2
+    frames: each marked stage's device ms a frame in wave order, then the
+    time outside any stage, the marks' own and the busy frame."""
+    m = MARK_PREFIX
+    events = [_mark_ev("warm_up", 0, 4)]
+    for t0 in (100, 300):
+        events += [_mark_ev(m + "respawn", t0, 1),
+                   _mark_ev("elementwise", t0 + 2, 20),
+                   _mark_ev(m + "ext_trace", t0 + 30, 1),
+                   _mark_ev(TRAV, t0 + 32, 60),
+                   _mark_ev(m + "permute", t0 + 100, 1),
+                   _mark_ev(GATHER, t0 + 102, 10),
+                   _mark_ev(m + "end", t0 + 120, 1)]
+    got = profiling.stage_device_ms(events)
+    lines = profile_frame.stage_report(got, 2)
+    assert lines == [
+        "stages (device ms a frame, one with_stats call of 2 frames, "
+        "2 waves):",
+        "    0.020 ms  respawn",
+        "    0.060 ms  ext_trace",
+        "    0.010 ms  permute",
+        "    0.002 ms  outside any stage",
+        "    0.004 ms  the 8 marks' own kernels",
+        "    0.096 ms  busy frame (the stages, the rest and the marks)"]

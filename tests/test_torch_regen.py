@@ -22,6 +22,7 @@ from tpu_pathtracer_torch.scene.config import MatDesc, MAT_DIFF
 from tpu_pathtracer_torch.tracer.renderer import Renderer
 from tpu_pathtracer_torch.tracer.regen import make_regen_integrator
 from tpu_pathtracer_torch.tracer.wavefront import RenderSettings
+from torch_settings import JAX_ONLY, port_fields
 
 torch.set_num_threads(2)
 # The first MKL-backed call (torch.sqrt) on a fresh CPU pool thread can
@@ -124,22 +125,32 @@ def test_wavefront_traversal_setting_gives_the_same_image():
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(bounce_max=128), ValueError),
-    (dict(regen_permute="gathr"), ValueError),
-    (dict(regen_permute="sort", regen_order="inplace"), ValueError),
     (dict(scatter_mode="rings"), ValueError),
     (dict(regen_order="in_place"), ValueError),
-    (dict(dup_stage="shde"), ValueError),
+    # the JAX package's fields that the port leaves out (JAX_ONLY)
+    (dict(dup_stage="shade"), TypeError),
+    (dict(regen_permute="sort"), TypeError),
 ])
 def test_regen_settings_raise(kw, exc):
     with pytest.raises(exc):
         make_regen_integrator(RenderSettings(**kw), 8, 8)
 
 
-@pytest.mark.parametrize("kw", [dict(regen_order="inplace"),
-                                dict(regen_permute="sort")],
-                         ids=["inplace", "sort"])
+def test_settings_are_the_jax_fields_less_the_jax_only_ones():
+    """The port's RenderSettings fields are the JAX package's, in the same
+    order, less exactly JAX_ONLY, and their defaults are equal."""
+    from tpu_pathtracer.tracer.wavefront import RenderSettings as JSettings
+    jax_names = [f.name for f in dataclasses.fields(JSettings)]
+    assert set(JAX_ONLY) <= set(jax_names)
+    assert [f.name for f in dataclasses.fields(RenderSettings)] == [
+        k for k in jax_names if k not in JAX_ONLY]
+    assert dataclasses.asdict(RenderSettings()) == port_fields(JSettings())
+
+
+@pytest.mark.parametrize("kw", [dict(regen_order="inplace")],
+                         ids=["inplace"])
 def test_regen_settings_render(kw):
-    """The two settings that raised before this slice now render the
+    """The inplace order, which raised before its slice, renders the
     default order's image (same samples, same waves)."""
     a = _render_mode("ring")
     b = _render_mode("ring", extra=tuple(kw.items()))

@@ -1,13 +1,13 @@
-"""The port's last two regen settings: the inplace pool order and the
-sort permute, held to the default compact order and gather permute.
+"""The port's inplace pool order, held to the default compact order.
 
 inplace == compact to float addition order (tests/test_regen.py:44: max
-|d| < 5e-3, mean |d| < 1e-5), with the same waves and traced rays; sort ==
-gather bit for bit (tests/test_regen.py:240); and the capped-pool,
-with_stats and scatter-mode cases of tests/test_regen.py:81-208 under
-inplace.
+|d| < 5e-3, mean |d| < 1e-5), with the same waves and traced rays, on
+TestObj and on the scenes of tests/test_regen.py:240 (surfaces, a capped
+pool, media, subsurface); and the capped-pool, with_stats and scatter-mode
+cases of tests/test_regen.py:81-208 under inplace.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -26,12 +26,53 @@ torch.set_num_threads(2)
 torch.sqrt(torch.ones(1 << 16))
 
 
-def test_inplace_matches_compact():
+def _scene_case(name):
+    """(materials, settings) of a scene of tests/test_regen.py:240 on the
+    TestObj stream: "surface", "capped" (a 256-lane pool), "media" (jade
+    in the glass), "subsurface"."""
+    from tpu_pathtracer_torch.scene.config import (
+        MAT_GLASS, MAT_REFL, MAT_SUBSURFACE)
+    base = [MatDesc(refltype=MAT_DIFF), MatDesc(refltype=MAT_DIFF),
+            MatDesc(refltype=MAT_GLASS), MatDesc(refltype=MAT_REFL)]
+    if name == "media":
+        return [MatDesc(refltype=MAT_DIFF), MatDesc(refltype=MAT_DIFF),
+                MatDesc(refltype=MAT_GLASS, medium="jade"),
+                MatDesc(refltype=MAT_REFL)], dict(has_media=True)
+    if name == "subsurface":
+        return [MatDesc(refltype=MAT_DIFF),
+                MatDesc(refltype=MAT_SUBSURFACE, objcol=(0.8, 0.75, 0.7),
+                        alphax=0.3, etaT=1.4, mfp=(0.3, 0.25, 0.2), ks=0.2),
+                MatDesc(refltype=MAT_GLASS),
+                MatDesc(refltype=MAT_REFL)], dict(has_bssrdf=True)
+    return base, (dict(pool_lanes=256) if name == "capped" else {})
+
+
+@functools.lru_cache(maxsize=None)
+def _render_scene(name, order):
+    """(image, waves, rays) of a 32x32, 2-spp with_stats render of a scene
+    (TestObj's own for "default", else _scene_case) in a pool order."""
+    if name == "default":
+        return _render_mode("ring", extra=(() if order == "compact" else
+                                           (("regen_order", order),)))
+    W = 32
+    mats, extra = _scene_case(name)
+    s = RenderSettings(use_envmap=True, use_texture=False, regen_order=order,
+                       **extra)
+    r = _renderer(W, settings=s, mats=mats)
+    rc = tdemo.default_camera(W, W).build_render_camera()
+    acc, waves, rays = r.render_frames(r.zeros_accum(), rc, 1, 2,
+                                       with_stats=True)
+    return acc.numpy(), waves, rays
+
+
+@pytest.mark.parametrize("name", ["default", "surface", "capped", "media",
+                                  "subsurface"])
+def test_inplace_matches_compact(name):
     """tests/test_regen.py:44 in the port: the pool order changes nothing
     observable: the same image to float addition order, the same waves and
     the same traced rays."""
-    a = _render_mode("ring")
-    b = _render_mode("ring", extra=(("regen_order", "inplace"),))
+    a = _render_scene(name, "compact")
+    b = _render_scene(name, "inplace")
     d = np.abs(a[0] - b[0])
     assert d.max() < 5e-3 and d.mean() < 1e-5
     assert a[1:] == b[1:]
@@ -61,13 +102,25 @@ def test_inplace_capped_pool_matches_full():
     assert narrow[1] > full[1]
 
 
-@pytest.mark.parametrize("order", ["compact", "inplace"])
-def test_with_stats_renders_the_same_bits(order):
+@pytest.mark.parametrize("order,name,kw", [
+    ("compact", "default", {}), ("inplace", "default", {}),
+    ("compact", "media", {}), ("compact", "subsurface", {}),
+    ("compact", "default", dict(use_distant_light=True)),
+    ("compact", "default", dict(scatter_mode="wave"))],
+    ids=["compact", "inplace", "media", "bssrdf", "distant_light", "wave"])
+def test_with_stats_renders_the_same_bits(order, name, kw):
     """tests/test_regen.py:208: counting rays changes no bit of the image
-    and no wave."""
+    and no wave, on TestObj in either order, with media, with BSSRDF, with
+    the distant light and with the per-wave add."""
     W = 32
-    s = dataclasses.replace(_renderer(W).settings, regen_order=order)
-    r = _renderer(W, settings=s)
+    mats = None
+    if name == "default":
+        s = _renderer(W).settings
+    else:
+        mats, extra = _scene_case(name)
+        s = RenderSettings(use_envmap=True, use_texture=False, **extra)
+    s = dataclasses.replace(s, regen_order=order, **kw)
+    r = _renderer(W, settings=s, mats=mats)
     rc = tdemo.default_camera(W, W).build_render_camera()
     fn = make_regen_integrator(s, W, W)
     cam_vec = torch.as_tensor(rc.as_array())
@@ -92,40 +145,3 @@ def test_inplace_pool_after_waves_is_a_mask():
     assert pool["waves"] == 2 and int(act.sum()) == pool["alive"] > 0
     assert not torch.equal(act, torch.arange(W * W) < pool["alive"])
     assert (pool["L"][~act] == 0).all()
-
-
-def _sort_case(name):
-    from tpu_pathtracer_torch.scene.config import (
-        MAT_GLASS, MAT_REFL, MAT_SUBSURFACE)
-    base = [MatDesc(refltype=MAT_DIFF), MatDesc(refltype=MAT_DIFF),
-            MatDesc(refltype=MAT_GLASS), MatDesc(refltype=MAT_REFL)]
-    if name == "media":
-        return [MatDesc(refltype=MAT_DIFF), MatDesc(refltype=MAT_DIFF),
-                MatDesc(refltype=MAT_GLASS, medium="jade"),
-                MatDesc(refltype=MAT_REFL)], dict(has_media=True)
-    if name == "subsurface":
-        return [MatDesc(refltype=MAT_DIFF),
-                MatDesc(refltype=MAT_SUBSURFACE, objcol=(0.8, 0.75, 0.7),
-                        alphax=0.3, etaT=1.4, mfp=(0.3, 0.25, 0.2), ks=0.2),
-                MatDesc(refltype=MAT_GLASS),
-                MatDesc(refltype=MAT_REFL)], dict(has_bssrdf=True)
-    return base, (dict(pool_lanes=256) if name == "capped" else {})
-
-
-@pytest.mark.parametrize("name", ["surface", "capped", "media",
-                                  "subsurface"])
-def test_sort_permute_bit_identical(name):
-    """tests/test_regen.py:240 in the port: the planar carry moved by one
-    stable sort order gives the gather permute's image bit for bit."""
-    W = 32
-    mats, extra = _sort_case(name)
-    rc = tdemo.default_camera(W, W).build_render_camera()
-    imgs = {}
-    for pm in ("gather", "sort"):
-        s = RenderSettings(use_envmap=True, use_texture=False,
-                           regen_permute=pm, **extra)
-        r = _renderer(W, settings=s, mats=mats)
-        imgs[pm] = r.render_frames(r.zeros_accum(), rc, 1, 2,
-                                   with_stats=True)
-    assert torch.equal(imgs["gather"][0], imgs["sort"][0])
-    assert imgs["gather"][1:] == imgs["sort"][1:]

@@ -37,6 +37,7 @@ from tpu_pathtracer_torch.tracer import envsample as tenv
 from tpu_pathtracer_torch.tracer.traverse import pack_stream as tpack
 from tpu_pathtracer_torch.tracer.wavefront import RenderSettings
 from tpu_pathtracer_torch.convert import scene_from_jax
+from torch_settings import port_fields
 
 torch.set_num_threads(2)
 # The first MKL-backed call (torch.sqrt) on a fresh CPU pool thread can
@@ -186,24 +187,14 @@ def test_scene_dict_bit_exact_and_scene_from_jax():
 
 @pytest.mark.parametrize("what", ["bounce"])
 def test_renderer_raises_for_unported_features(what):
-    """The bounce integrator is ported: the Renderer takes it. The dup_stage
-    profiling hook is ported too: a frame with a stage doubled is the
-    undoubled frame bit for bit. An unknown integrator raises at
-    construction."""
+    """The bounce integrator is ported: the Renderer takes it. An unknown
+    integrator raises at construction."""
     fb, mats, envmap, texture = _scene("default")
     r = trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
                            width=8, height=8,
                            settings=RenderSettings(integrator=what),
                            device="cpu")
     assert r.settings.integrator == what
-    r = trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
-                           width=8, height=8,
-                           settings=RenderSettings(dup_stage="shade"),
-                           device="cpu")
-    rc = tdemo.default_camera(8, 8).build_render_camera()
-    doubled = r.render_frames(r.zeros_accum(), rc, 1, 1)
-    r.settings = dataclasses.replace(r.settings, dup_stage="")
-    assert torch.equal(doubled, r.render_frames(r.zeros_accum(), rc, 1, 1))
     with pytest.raises(ValueError):
         trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
                            width=8, height=8,
@@ -221,7 +212,7 @@ def test_media_and_subsurface_scene_dicts_bit_exact(variant):
                             width=24, height=16)
     tr = trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
                             width=24, height=16, device="cpu")
-    assert dataclasses.asdict(tr.settings) == dataclasses.asdict(jr.settings)
+    assert port_fields(tr.settings) == port_fields(jr.settings)
     assert tr.settings.has_media == (variant == "media")
     assert tr.settings.has_bssrdf == (variant == "subsurface")
     assert (tr.settings.packet_tile_sub,
@@ -248,7 +239,7 @@ def test_default_settings_for_a_stream_over_the_smem_budget():
                             width=8, height=8)
     tr = trenderer.Renderer(fb, mats, envmap=envmap, texture=texture,
                             width=8, height=8, device="cpu")
-    assert dataclasses.asdict(tr.settings) == dataclasses.asdict(jr.settings)
+    assert port_fields(tr.settings) == port_fields(jr.settings)
     assert (tr.settings.packet_tile_sub,
             tr.settings.packet_interleave) == (16, 4)
 

@@ -37,6 +37,7 @@ from tpu_pathtracer_torch.scene import procedural as tproc
 from tpu_pathtracer_torch.tracer import traverse as ttrav
 from tpu_pathtracer_torch.materials import bsdf as tbsdf
 from tpu_pathtracer_torch.materials import fresnel as tfresnel
+from torch_settings import port_fields
 
 torch.set_num_threads(2)
 # The first MKL-backed call (torch.sqrt) on a fresh CPU pool thread can
@@ -171,8 +172,7 @@ def test_env_miss_without_nee_matches_jax(variant):
         st_j = dataclasses.replace(settings, env_importance_sampling=False)
     else:
         st_j = dataclasses.replace(settings, use_envmap=False)
-    st_t = twf.RenderSettings(**{f.name: getattr(st_j, f.name)
-                                 for f in dataclasses.fields(st_j)})
+    st_t = twf.RenderSettings(**port_fields(st_j))
     g = np.random.default_rng(16)
     d = _unit(g, N)
     pdf = g.uniform(0, 2, N).astype(np.float32)

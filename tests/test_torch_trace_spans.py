@@ -107,10 +107,18 @@ def _profiled_render(variant, settings=(), with_stats=True):
     return out, _marks(events), {e["name"] for e in events}, counted
 
 
-@pytest.mark.parametrize("variant,settings", [
-    ("default", ()), ("subsurface", ()),
-    ("default", (("scatter_mode", "wave"),)), ("media", ())])
-def test_with_stats_call_marks_every_stage_of_every_wave(variant, settings):
+@pytest.mark.parametrize("variant,settings,widths", [
+    ("default", (), 3), ("subsurface", (), 3),
+    ("default", (("scatter_mode", "wave"),), 3), ("media", (), 2),
+    ("default", (("regen_order", "inplace"),), 1),
+    ("default", (("merge_envtex", False),), 3),
+    ("default", (("use_distant_light", True),), 3),
+    ("default", (("pool_lanes", 16),), 2),
+    ("media", (("scatter_mode", "wave"),), 2)],
+    ids=["default", "subsurface", "wave", "media", "inplace",
+         "unmerged_envtex", "distant_light", "capped_pool", "media_wave"])
+def test_with_stats_call_marks_every_stage_of_every_wave(variant, settings,
+                                                         widths):
     (acc, waves, rays), marks, _, counted = _profiled_render(variant,
                                                              settings)
     want = list(REGEN)
@@ -119,7 +127,8 @@ def test_with_stats_call_marks_every_stage_of_every_wave(variant, settings):
     if variant == "media":
         # the medium step between the closest-hit trace and the surface
         want.insert(want.index("ext_trace") + 1, "medium")
-    if dict(settings).get("scatter_mode") == "wave":
+    if dict(settings).get("scatter_mode") == "wave" or \
+            dict(settings).get("regen_order") == "inplace":
         # every wave adds its contribution before the permute
         want.remove("scatter")
         want.insert(want.index("permute"), "scatter")
@@ -127,8 +136,9 @@ def test_with_stats_call_marks_every_stage_of_every_wave(variant, settings):
     # every wave launched, the one past the end included (device_loop.LAG)
     assert len(per_wave) == sum(counted.values()) == waves + 1 > 3
     # the drain widths ran (the media paths at 8x8 end before the live
-    # count reaches the narrowest width's 4 lanes)
-    assert len(counted) == (2 if variant == "media" else 3)
+    # count reaches the narrowest width's 4 lanes, and a 16-lane pool's
+    # paths before its 1 lane; inplace has no drain)
+    assert len(counted) == widths
     assert all(w == want for w in per_wave), per_wave[0]
 
 
@@ -169,13 +179,25 @@ def test_scenes_without_media_keep_their_marks(variant):
     assert marks == before[variant] * len(_waves(marks))
 
 
-@pytest.mark.parametrize("variant", ["default", "subsurface", "media"])
-def test_marks_leave_the_image_bits(variant):
-    (marked, _, _), marks, _, _ = _profiled_render(variant)
+@pytest.mark.parametrize("variant,settings", [
+    ("default", ()), ("subsurface", ()), ("media", ()),
+    ("default", (("scatter_mode", "wave"),)),
+    ("default", (("regen_order", "inplace"),)),
+    ("default", (("merge_envtex", False),)),
+    ("default", (("use_distant_light", True),))],
+    ids=["default", "subsurface", "media", "wave", "inplace",
+         "unmerged_envtex", "distant_light"])
+def test_marks_leave_the_image_bits(variant, settings):
+    (marked, _, _), marks, _, _ = _profiled_render(variant, settings)
     r = _renderer(variant)
+    base = r.settings
+    r.settings = dataclasses.replace(base, **dict(settings))
+    try:
+        plain = r.render_frames(r.zeros_accum(), _camera(), 1, 1)
+    finally:
+        r.settings = base
     assert marks
-    assert torch.equal(marked, r.render_frames(r.zeros_accum(), _camera(),
-                                               1, 1))
+    assert torch.equal(marked, plain)
 
 
 def _hand_counts(r, cam, n_frames, monkeypatch):

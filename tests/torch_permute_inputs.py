@@ -9,6 +9,11 @@ alias names which sources share memory with the pool, as in the regen
 wave: "fresh" (only pixel, which is always the pool's own column),
 "wave" (L too, scatter_mode "wave"), "untouched" (lbn and medium_id too,
 a segment that returns them as they were).
+
+order names the source order: "random" (a random permutation of the
+rows) or "wave" (the order tracer/regen.py: _compact builds, a stable
+argsort of a key of hit slot and octant with many ties, and 2**30 on the
+rows that died or lie past the live prefix).
 """
 import numpy as np
 import torch
@@ -16,6 +21,7 @@ import torch
 from tpu_pathtracer_torch.ops.permute import DST
 
 ALIASES = ("fresh", "wave", "untouched")
+ORDERS = ("random", "wave")
 # the largest medium id the packed word carries ((mid + 1) << 16 > 0)
 MAX_MEDIUM_ID = 32766
 _F32_EDGES = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, -1.0, 1e-45,
@@ -42,11 +48,21 @@ def _ints(g, n, lo, hi, edges):
     return np.where(pick, np.asarray(edges)[g.integers(0, len(edges), n)], x)
 
 
-def pool_inputs(P, seed, device, alias="fresh"):
+def _wave_order(g, P):
+    """_compact's order on P rows: hit slots from a few (so keys tie),
+    octants, and the 2**30 tail on about a third of the rows."""
+    slot = torch.from_numpy(g.integers(-1, max(P // 16, 2), P))
+    oct_ = torch.from_numpy(g.integers(0, 8, P))
+    last = torch.from_numpy(g.random(P) < 0.3)
+    key = torch.where(last, 2 ** 30, (torch.clamp_min(slot, 0) << 3) | oct_)
+    return torch.argsort(key, stable=True).numpy()
+
+
+def pool_inputs(P, seed, device, alias="fresh", order="random"):
     """(st, args): st the pool's ten destination columns (filled, so a
     column the permute fails to write shows), args (src, o, d, m, ell,
-    pdf, rng, pixel, lb, bn, mid) for pool_gather. src is a random
-    permutation of the rows; rng has its high 32 bits set on some rows;
+    pdf, rng, pixel, lb, bn, mid) for pool_gather. src is the rows in
+    `order` (ORDERS); rng has its high 32 bits set on some rows;
     lbn and bounce take 0 and 127, medium_id -1 and MAX_MEDIUM_ID; the
     float columns NaN, +-inf and -0.0; bsdf_pdf -1."""
     g = np.random.default_rng(seed)
@@ -68,7 +84,12 @@ def pool_inputs(P, seed, device, alias="fresh"):
     st["bounce"] = t(_ints(g, P, 0, 127, [0, 127]), i32)
     st["medium_id"] = t(_ints(g, P, -1, MAX_MEDIUM_ID,
                               [-1, MAX_MEDIUM_ID]), i32)
-    src = t(g.permutation(P), i64)
+    if order == "random":
+        src = t(g.permutation(P), i64)
+    elif order == "wave":
+        src = t(_wave_order(g, P), i64)
+    else:
+        raise ValueError("unknown order %r" % (order,))
     o, d, m, ell = (t(_floats(g, (P, 3)), f32) for _ in range(4))
     pdf = _floats(g, (P,))
     pdf[g.random(P) < 0.2] = -1.0

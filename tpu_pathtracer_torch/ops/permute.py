@@ -6,10 +6,10 @@ the CPU.
 
 tracer/regen.py: _compact calls `pool_gather` once a compact wave with the
 stable argsort of its key. A CPU tensor goes to the plain version, any
-other device to the kernel, which launches once (twice with `dup`) or
-raises. Nothing falls back. Both give the same bits: floats move as their
-32 bits, rng keeps its low 32 bits zero-extended, pixel its low 32 bits
-sign-extended, and lbn, bounce and medium_id go through the packed word
+other device to the kernel, which launches once or raises. Nothing falls
+back. Both give the same bits: floats move as their 32 bits, rng keeps
+its low 32 bits zero-extended, pixel its low 32 bits sign-extended, and
+lbn, bounce and medium_id go through the packed word
 lb | bn << 8 | (mid + 1) << 16 (so bounce_max <= 127, as
 tracer/regen.py: _check_settings requires).
 
@@ -45,11 +45,9 @@ SRC = (("o", torch.float32, 3), ("d", torch.float32, 3),
        ("bn", torch.int32, 1), ("mid", torch.int32, 1))
 
 
-def pool_gather_plain(st, src, o, d, m, ell, pdf, rng, pixel, lb, bn, mid,
-                      dup=False):
+def pool_gather_plain(st, src, o, d, m, ell, pdf, rng, pixel, lb, bn, mid):
     """Write st's orig, dir, mask, L, bsdf_pdf, rng, pixel, lbn, bounce and
-    medium_id at row i from the sources at row src[i], in place. dup:
-    gather twice and add the second times zero (the same bits)."""
+    medium_id at row i from the sources at row src[i], in place."""
     # one row gather moves the packed pool; int32 bits:
     # orig 0:3 | dir 3:6 | mask 6:9 | bsdf_pdf 9 | L 10:13 |
     # rng 13 | pixel 14 | lbn + bounce<<8 + (medium_id+1)<<16 15
@@ -59,7 +57,7 @@ def pool_gather_plain(st, src, o, d, m, ell, pdf, rng, pixel, lb, bn, mid,
         ell.view(torch.int32), rng.to(torch.int32)[:, None],
         pixel.to(torch.int32)[:, None],
         (lb | (bn << 8) | ((mid + 1) << 16))[:, None]], dim=1)
-    moved = pmat[src] + 0 * pmat[src] if dup else pmat[src]
+    moved = pmat[src]
     for k, a, b in (("orig", 0, 3), ("dir", 3, 6), ("mask", 6, 9),
                     ("L", 10, 13)):
         st[k].view(torch.int32).copy_(moved[:, a:b])
@@ -135,31 +133,27 @@ def _call(fn, args, stream):
                            % err)
 
 
-def pool_gather_cuda(st, src, *sources, dup=False):
+def pool_gather_cuda(st, src, *sources):
     """csrc/permute.cu on CUDA tensors, on the current stream of their
     device (no host read, so a CUDA graph can capture it): the aliased
-    sources copied, then one launch (two with dup, the second writing the
-    same bits). Writes st as pool_gather_plain."""
+    sources copied, then one launch. Writes st as pool_gather_plain."""
     args, _ = _prepare(st, src, sources)
     fn = _kernel()
     if args[0]:
         with torch.cuda.device(src.device):
-            stream = torch.cuda.current_stream(src.device).cuda_stream
-            for _ in range(2 if dup else 1):
-                _call(fn, args, stream)
-                LAUNCHES["pool_gather"] += 1
+            _call(fn, args, torch.cuda.current_stream(src.device).cuda_stream)
+            LAUNCHES["pool_gather"] += 1
 
 
-def pool_gather(st, src, o, d, m, ell, pdf, rng, pixel, lb, bn, mid,
-                dup=False):
+def pool_gather(st, src, o, d, m, ell, pdf, rng, pixel, lb, bn, mid):
     """The plain version for CPU tensors, the kernel for any other; both
     check the inputs first (check)."""
     sources = (o, d, m, ell, pdf, rng, pixel, lb, bn, mid)
     if src.device.type == "cpu":
         check(st, src, *sources)
-        pool_gather_plain(st, src, *sources, dup=dup)
+        pool_gather_plain(st, src, *sources)
     else:
-        pool_gather_cuda(st, src, *sources, dup=dup)
+        pool_gather_cuda(st, src, *sources)
 
 
 def launch_fn(st, src, *sources):

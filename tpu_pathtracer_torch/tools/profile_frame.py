@@ -1,5 +1,5 @@
-"""The marginal per-op profile of the real frame, and the price of each
-wave stage (port of tools/profile_frame.py).
+"""The marginal per-op profile of the real frame, and each wave stage's
+device time (port of tools/profile_frame.py).
 
 Profiles a LO-frame and a HI-frame render of a demo scene with
 torch.profiler and prints (HI - LO) / (HI - LO frames) per op: the
@@ -10,15 +10,13 @@ over the profiled window, which the host paces.
 
     python -m tpu_pathtracer_torch.tools.profile_frame --wh 1024 \\
         --frames 1 5 [--demo subsurface] [--integrator bounce] \\
-        [--set pool_lanes=1<<19,scatter_mode='wave'] [--dup shade,permute]
+        [--set pool_lanes=1<<19,scatter_mode='wave'] [--stages]
 
---dup STAGE[,STAGE...] prices each regen stage (tracer/regen.DUP_STAGES;
-"all" for every one): the median marginal ms per frame (HI against LO
-frames, as tools/sweep_frame.py times it) with RenderSettings.dup_stage
-set minus without it, the sets taken in turns inside this process (none,
-each stage, each stage backwards, none); then each stage's image is held
-to the undoubled one bit for bit under torch's deterministic algorithms
-(CUDA's index_add_ otherwise adds in no fixed order).
+--stages then prints each regen stage's device ms a frame: one with_stats
+call of HI frames under torch.profiler, its device time split by the
+call's stage marks (ops/marks.py; utils/profiling.py: stage_device_ms).
+Only a CUDA card's marks carry device time, so --stages refuses any other
+device, and the bounce integrator, which marks nothing.
 
 The device is --device (default cuda). --device cpu runs the same control
 flow with the CPU activity only and prints "host ops (cpu)", the host's
@@ -28,8 +26,9 @@ from __future__ import annotations
 
 import argparse
 import ast
-import contextlib
 import dataclasses
+import os
+import tempfile
 
 import torch
 
@@ -119,54 +118,42 @@ def report(prof, top=30):
     return lines
 
 
-@contextlib.contextmanager
-def deterministic():
-    """torch's deterministic algorithms (index_add_ adds in index order) for
-    the body, without their filling of uninitialised memory, which adds a
-    kernel to every allocation."""
-    import torch.utils.deterministic as tud
-    was, fill = (torch.are_deterministic_algorithms_enabled(),
-                 tud.fill_uninitialized_memory)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    tud.fill_uninitialized_memory = False
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was)
-        tud.fill_uninitialized_memory = fill
+def stage_profile(r, rc, frames):
+    """stage_device_ms of one with_stats call of `frames` frames on r's
+    device, after a warm-up call of the same key (it builds and captures),
+    under torch.profiler (CPU and CUDA activity); every device event of
+    the trace counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        r.render_frames(r.zeros_accum(), rc, 1, frames, with_stats=True)
+        synchronize(r.device)
+    run()
+    with tempfile.TemporaryDirectory(prefix="profile_frame_") as tmp:
+        path = os.path.join(tmp, "stages.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        prof.export_chrome_trace(path)
+        return profiling.stage_device_ms(path)
 
 
-def price_stages(r, rc, stages, frames=(1, 5)):
-    """The price of each dup_stage on r's frame. sweep_frame.sweep times
-    the undoubled settings and each stage's in turns, forward then back
-    (none, s1 ... sN, sN ... s1, none), so each stage sits between two
-    undoubled renders; a stage's price is its marginal ms per frame minus
-    the undoubled one, the drain of a render call cancelled in each. Then,
-    under deterministic(), each stage's image of HI frames is held to the
-    undoubled one. Returns {stage: {none_ms, dup_ms, price_ms,
-    bit_equal}}: each turn's marginal ms per frame without and with the
-    stage, the difference of their medians, and whether the doubled image
-    equals the undoubled one bit for bit."""
-    from .sweep_frame import sweep
-    specs = {s: "dup_stage=%r" % s for s in stages}
-    rec = sweep(r, rc, [""] + list(specs.values()), frames, turns=2)
-    none = rec[""]
-    out = {s: {"none_ms": none["runs"], "dup_ms": rec[spec]["runs"],
-               "price_ms": rec[spec]["ms_per_frame"]
-               - none["ms_per_frame"]} for s, spec in specs.items()}
-    base = r.settings
-
-    def image(stage):
-        r.settings = dataclasses.replace(base, dup_stage=stage)
-        return r.render_frames(r.zeros_accum(), rc, 1, frames[1])
-    try:
-        with deterministic():
-            ref = image("")
-            for s in stages:
-                out[s]["bit_equal"] = torch.equal(image(s), ref)
-    finally:
-        r.settings = base
-    return out
+def stage_report(got, frames):
+    """The printed lines of a stage_profile of `frames` frames: each
+    marked stage's device ms a frame in wave order, then the device time
+    outside any stage, the marks' own and the busy frame."""
+    from ..ops.marks import STAGES
+    per = {k: ms / frames for k, ms in got["stages"].items()}
+    lines = ["stages (device ms a frame, one with_stats call of %d frames, "
+             "%d waves):" % (frames, len(got["wave_ms"]))]
+    lines += ["%9.3f ms  %s" % (per[k], k) for k in STAGES if k in per]
+    lines.append("%9.3f ms  outside any stage" % (got["none_ms"] / frames))
+    lines.append("%9.3f ms  the %d marks' own kernels"
+                 % (got["marks_ms"] / frames, got["marks"]))
+    lines.append("%9.3f ms  busy frame (the stages, the rest and the marks)"
+                 % (sum(per.values())
+                    + (got["none_ms"] + got["marks_ms"]) / frames))
+    return lines
 
 
 def build_renderer(demo_name, W, H, device, integrator=None, overrides=None):
@@ -204,9 +191,9 @@ def parse_args(argv=None):
                     help="comma-separated RenderSettings field=value "
                          "overrides (Python literals)")
     ap.add_argument("--integrator", choices=("regen", "bounce"))
-    ap.add_argument("--dup", default="",
-                    help="price these regen stages (comma-separated, or "
-                         "'all')")
+    ap.add_argument("--stages", action="store_true",
+                    help="then each regen stage's device ms a frame, from "
+                         "the stage marks (a CUDA card only)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda)")
     return ap.parse_args(argv)
@@ -218,30 +205,25 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("profile_frame: no CUDA device (pass --device cpu "
                          "to profile on the CPU)")
-    from ..tracer.regen import DUP_STAGES
-    stages = list(DUP_STAGES) if args.dup == "all" else \
-        [s for s in args.dup.split(",") if s]
-    for s in stages:
-        if s not in DUP_STAGES:
-            raise SystemExit("unknown stage %r (want %s)"
-                             % (s, ", ".join(DUP_STAGES)))
+    if args.stages and device.type != "cuda":
+        raise SystemExit("profile_frame --stages: the stage marks carry "
+                         "device time only on a CUDA card, not on %s"
+                         % device)
     W, H = args.w or args.wh, args.h or args.wh
     r, rc = build_renderer(args.demo, W, H, device, args.integrator,
                            settings_overrides(args.set))
+    if args.stages and r.settings.integrator != "regen":
+        raise SystemExit("profile_frame --stages: the %s integrator marks "
+                         "no stage" % r.settings.integrator)
     print("%s %dx%d, %s integrator, frames %d %d, device %s"
           % (args.demo, W, H, r.settings.integrator, args.frames[0],
              args.frames[1], args.device), flush=True)
     for line in report(profile(r, rc, tuple(args.frames)), args.top):
         print(line, flush=True)
-    if stages:
-        for s, p in price_stages(r, rc, stages,
-                                 tuple(args.frames)).items():
-            print("dup %-12s price %+8.2f ms/frame (with %s, without %s "
-                  "ms); image bit for bit: %s"
-                  % (s, p["price_ms"],
-                     "/".join("%.1f" % x for x in p["dup_ms"]),
-                     "/".join("%.1f" % x for x in p["none_ms"]),
-                     p["bit_equal"]), flush=True)
+    if args.stages:
+        hi = args.frames[1]
+        for line in stage_report(stage_profile(r, rc, hi), hi):
+            print(line, flush=True)
     return 0
 
 

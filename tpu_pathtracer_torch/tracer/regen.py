@@ -37,11 +37,9 @@ stable-sorted to the front (key: hit slot major, direction octant minor,
 dead lanes and the lanes past the live prefix last), so the live lanes are
 always the exact prefix [0, alive). The extension trace takes that prefix
 as a 0-d int32 device tensor, which the traversal kernel reads from device
-memory; every other stage takes the live mask. regen_permute="gather"
-moves every pool column by one gather (ops/permute.py: pool_gather, one
-kernel launch a wave on the card); "sort" carries the vector state (orig,
-dir, mask, L) as per-channel planes [3,P] and moves every plane and
-column by the same stable sort order, with the same bits as "gather".
+memory; every other stage takes the live mask. One gather moves every
+pool column (ops/permute.py: pool_gather, one kernel launch a wave on the
+card).
 
 regen_order="inplace": the pool is never compacted. The live set is a
 mask, traces take `active=`, and the dead lanes take the next queue
@@ -92,18 +90,6 @@ width, the live lanes inside a medium at the medium step
 (`medium_lanes`) and the lanes that scattered there (`medium_scatters`);
 the integrator reads them once after the call into `last_counters`
 ({} for a scene without media or a call without with_stats).
-
-`dup_stage` (the JAX bench's stage-duplication hook): the stage named
-runs twice a wave, the second call perturbed as in the JAX hook, and the
-duplicate is added times zero on its bits (wavefront.plus_zero_times), so
-the image keeps its bits while the frame pays for the stage twice;
-tools/profile_frame.py --dup prices each stage so. The stages are those of
-DUP_STAGES; `scatter` duplicates each index_add_ into a scratch image that
-is then dropped, `permute` on the card launches the pool gather twice
-(the second writes the same bits), and `texture`, `shade`, `sample_env`
-and `shadow_trace` are duplicated inside wavefront.shade_hits. Under CUDA
-graphs a stage's price is device time: the host no longer dispatches each
-kernel.
 """
 from __future__ import annotations
 
@@ -121,14 +107,11 @@ from . import device_loop
 from .medium import medium_interaction
 from .wavefront import (
     RenderSettings, trace_rays, fetch_attributes, env_miss_weighted,
-    env_tex_merged, shade_hits, distant_light, plus_zero_times,
+    env_tex_merged, shade_hits, distant_light,
 )
 from .renderer import generate_camera_rays, lane_pixel_xy
 
 
-# the JAX regen's dup_stage names (tpu_pathtracer/tracer/regen.py)
-DUP_STAGES = ("respawn", "ext_trace", "fetch", "envmiss", "texture", "shade",
-              "sample_env", "shadow_trace", "scatter", "permute")
 # the drain's narrower widths, P // d for each d (compact order only)
 DRAIN_DIVS = (4, 16)
 # the counters of a with_stats call on a scene with media, published in
@@ -144,18 +127,9 @@ def _check_settings(settings: RenderSettings):
     if settings.regen_order not in ("compact", "inplace"):
         raise ValueError("unknown regen_order %r (want compact/inplace)"
                          % (settings.regen_order,))
-    if settings.regen_permute not in ("gather", "sort"):
-        raise ValueError("unknown regen_permute %r (want gather/sort)"
-                         % (settings.regen_permute,))
-    if settings.regen_permute == "sort" and settings.regen_order != "compact":
-        raise ValueError("regen_permute='sort' requires "
-                         "regen_order='compact'")
     if settings.scatter_mode not in ("ring", "deferred", "wave"):
         raise ValueError("unknown scatter_mode %r (want ring/deferred/wave)"
                          % (settings.scatter_mode,))
-    if settings.dup_stage not in ("",) + DUP_STAGES:
-        raise ValueError("unknown dup_stage %r (want one of %s)"
-                         % (settings.dup_stage, ", ".join(DUP_STAGES)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,10 +150,6 @@ class WaveConfig:
         return self.settings.regen_order == "inplace"
 
     @property
-    def sort_mode(self):
-        return self.settings.regen_permute == "sort"
-
-    @property
     def deferred(self):
         # as in the JAX package, banking radiance on the path needs the
         # compacted dead tail: an inplace render adds every wave
@@ -191,15 +161,13 @@ def new_state(cfg: WaveConfig, device):
     """The tensors a wave reads and writes in place: the pool columns, the
     device scalars (next, alive, waves, rays, tot, frame0, lane0, and the
     COUNTERS of a with_stats call on a scene with media), the status a wave
-    ends with (int64 [done, alive, samples left]), the camera vector, the
-    image slice `accum` [N,3] and, for dup_stage="scatter", a scratch
-    image. Filled by reset()."""
+    ends with (int64 [done, alive, samples left]), the camera vector and
+    the image slice `accum` [N,3]. Filled by reset()."""
     P, N = cfg.P, cfg.N
     f32 = dict(dtype=torch.float32, device=device)
     i64 = dict(dtype=torch.int64, device=device)
     i32 = dict(dtype=torch.int32, device=device)
-    vshape = (3, P) if cfg.sort_mode else (P, 3)
-    st = {k: torch.empty(vshape, **f32) for k in ("orig", "dir", "mask",
+    st = {k: torch.empty((P, 3), **f32) for k in ("orig", "dir", "mask",
                                                    "L")}
     st.update(bsdf_pdf=torch.empty((P,), **f32),
               rng=torch.empty((P,), **i64), pixel=torch.empty((P,), **i64),
@@ -211,8 +179,6 @@ def new_state(cfg: WaveConfig, device):
               status=torch.empty((3,), **i64),
               cam_vec=torch.empty((16,), **f32),
               accum=torch.empty((N, 3), **f32),
-              scratch=torch.empty((N, 3), **f32)
-              if cfg.settings.dup_stage == "scatter" else None,
               light=distant_light(cfg.settings, device))
     for k in ("next", "alive", "waves", "tot", "frame0", "lane0") \
             + _counters(cfg):
@@ -235,10 +201,8 @@ def narrow(cfg: WaveConfig, st, w):
     if w == cfg.P:
         return cfg, st
     sub = dict(st)
-    for k in ("orig", "dir", "mask", "L"):
-        sub[k] = st[k][:, :w] if cfg.sort_mode else st[k][:w]
-    for k in ("bsdf_pdf", "rng", "pixel", "lbn", "bounce", "medium_id",
-              "active", "lane"):
+    for k in ("orig", "dir", "mask", "L", "bsdf_pdf", "rng", "pixel", "lbn",
+              "bounce", "medium_id", "active", "lane"):
         sub[k] = st[k][:w]
     return dataclasses.replace(cfg, P=w), sub
 
@@ -271,14 +235,6 @@ def reset(cfg: WaveConfig, st, cam_vec, frame0, lane0, accum, n_frames):
         st["accum"].zero_()
     else:
         st["accum"].copy_(accum)
-    if st["scratch"] is not None:
-        st["scratch"].zero_()
-
-
-def _add_to_image(st, idx, val):
-    st["accum"].index_add_(0, idx, val)
-    if st["scratch"] is not None:
-        st["scratch"].index_add_(0, idx, val * 1.0000001)
 
 
 def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
@@ -291,17 +247,11 @@ def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
     the count of shadow rays traced (a device scalar, 0 without
     with_stats)."""
     settings = cfg.settings
-    dup = settings.dup_stage
     mark = stage_marker(cfg.with_stats, o.device)
     mark("ext_trace")
     hit_slot, hit_t = trace_rays(
         scene, settings, o, d, RAY_MIN, RAY_MAX, anyhit=False,
         active=active, active_prefix=prefix)
-    if dup == "ext_trace":
-        _, ht2 = trace_rays(scene, settings, o, d, RAY_MIN * 1.0000001,
-                            RAY_MAX, anyhit=False, active=active,
-                            active_prefix=prefix)
-        hit_t = plus_zero_times(hit_t, ht2)
     if settings.has_media:
         mark("medium")
         if _counters(cfg):
@@ -320,11 +270,6 @@ def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
     hitpoint = o + d * hit_t[:, None]
     hit_uv, smooth_n, mat_id, tri_n = fetch_attributes(
         scene, hit_slot, hitpoint)
-    if dup == "fetch":
-        hit_uv, smooth_n, mat_id, tri_n = (
-            plus_zero_times(x, x2) for x, x2 in zip(
-                (hit_uv, smooth_n, mat_id, tri_n),
-                fetch_attributes(scene, hit_slot, hitpoint + 1e-7)))
     merged_et = (settings.merge_envtex and settings.use_texture
                  and settings.use_envmap
                  and settings.env_importance_sampling
@@ -332,18 +277,9 @@ def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
     if merged_et:
         env, tex_rgb = env_tex_merged(scene, settings, d, pdf_prev,
                                       cam_vec[15], miss, hit_uv)
-        if dup in ("envmiss", "texture"):
-            # hit_uv perturbed too: it feeds the gather's row index
-            e2, t2 = env_tex_merged(scene, settings, d, pdf_prev + 1e-7,
-                                    cam_vec[15], miss, hit_uv + 1e-7)
-            env = plus_zero_times(env, e2)
-            tex_rgb = plus_zero_times(tex_rgb, t2)
     else:
         tex_rgb = None
         env = env_miss_weighted(scene, settings, d, pdf_prev, cam_vec[15])
-        if dup == "envmiss":
-            env = plus_zero_times(env, env_miss_weighted(
-                scene, settings, d, pdf_prev + 1e-7, cam_vec[15]))
     contrib = torch.where(miss[:, None], m * env, 0.0)
     surf = ~miss & ~sampled_medium if settings.has_media else ~miss
     surf = active & surf
@@ -352,7 +288,7 @@ def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
     (r, o, d, m, pdf_new, lb, mid, contrib, ended, n_shadow) = shade_hits(
         scene, settings, r, o, d, m, pdf_prev, lbn_a, mid, surf, hit,
         tex_rgb, contrib, cam_vec[15], light, count_rays=cfg.with_stats,
-        dup_stage=dup, mark=mark)
+        mark=mark)
     bn = torch.where(active, bn_prev + 1, bn_prev)
     finished = active & (miss | ended | (bn >= lb)
                          | (bn >= settings.bounce_max))
@@ -368,7 +304,7 @@ def regen_wave(cfg: WaveConfig, scene, st):
     done (or stop_after_waves waves have run) a wave changes no bit of the
     state: it spawns nothing, traces an empty prefix and adds zeros."""
     s = cfg.settings
-    P, N, dup = cfg.P, cfg.N, s.dup_stage
+    P, N = cfg.P, cfg.N
     lane, live = st["lane"], st["active"]
     mark = stage_marker(cfg.with_stats, lane.device)
     mark("respawn")
@@ -397,15 +333,7 @@ def regen_wave(cfg: WaveConfig, scene, st):
     px, py = pxi.to(torch.float32), pyi.to(torch.float32)
     rng_new, o_new, d_new = generate_camera_rays(st["cam_vec"], rng_new, px,
                                                  py)
-    if dup == "respawn":
-        r2, o2, d2 = generate_camera_rays(st["cam_vec"], rng_new, px + 1e-6,
-                                          py)
-        o_new = plus_zero_times(o_new,
-                                o2 + d2 + r2[:, None].to(torch.float32))
-    if cfg.sort_mode:
-        sel, o_new, d_new = spawn[None, :], o_new.t(), d_new.t()
-    else:
-        sel = spawn[:, None]
+    sel = spawn[:, None]
     torch.where(sel, o_new, st["orig"], out=st["orig"])
     torch.where(sel, d_new, st["dir"], out=st["dir"])
     st["mask"].masked_fill_(sel, 1.0)
@@ -426,11 +354,9 @@ def regen_wave(cfg: WaveConfig, scene, st):
     # ---- one wavefront segment over all P lanes: the extension trace
     # over the live prefix (compact) or the live mask (inplace), every
     # other stage under the live mask ----
-    def vec(k):
-        return st[k].t().contiguous() if cfg.sort_mode else st[k]
     (o, d, m, pdf_new, r, lb, bn, mid, contrib, finished, hit_slot,
      n_shadow) = _segment(
-        cfg, scene, st["cam_vec"], vec("orig"), vec("dir"), vec("mask"),
+        cfg, scene, st["cam_vec"], st["orig"], st["dir"], st["mask"],
         st["bsdf_pdf"], st["rng"], st["lbn"], st["bounce"], st["medium_id"],
         act, None if cfg.inplace else n_act.to(torch.int32), st["light"], st)
     # the segment draws random numbers on every lane: the lanes outside
@@ -439,11 +365,11 @@ def regen_wave(cfg: WaveConfig, scene, st):
     if cfg.with_stats:
         st["rays"].add_(n_shadow)
     if cfg.deferred:
-        ell = vec("L") + contrib
+        ell = st["L"] + contrib
     else:
         mark("scatter")
-        _add_to_image(st, st["pixel"], contrib)
-        ell = vec("L")
+        st["accum"].index_add_(0, st["pixel"], contrib)
+        ell = st["L"]
     alive_new = torch.where(go, n_act - finished.sum(), alive)
     waves.add_(go.to(torch.int64))
 
@@ -455,15 +381,15 @@ def regen_wave(cfg: WaveConfig, scene, st):
             st[k].copy_(v)
         torch.logical_and(live, ~finished, out=live)
     else:
-        _compact(cfg, st, o, d, m, pdf_new, ell, r, lb, bn, mid,
-                 finished | ~act, hit_slot)
+        _compact(st, o, d, m, pdf_new, ell, r, lb, bn, mid, finished | ~act,
+                 hit_slot)
         torch.lt(lane, alive_new, out=live)
         if cfg.deferred:
             mark("scatter")
             # the paths that died this wave are now rows [alive, n_act)
             died = (lane >= alive_new) & (lane < n_act)
-            _add_to_image(st, st["pixel"],
-                          torch.where(died[:, None], vec("L"), 0.0))
+            st["accum"].index_add_(
+                0, st["pixel"], torch.where(died[:, None], st["L"], 0.0))
     alive.copy_(alive_new)
     more = (nxt < tot) | (alive > 0)
     if cfg.stop_after_waves:
@@ -473,43 +399,23 @@ def regen_wave(cfg: WaveConfig, scene, st):
     mark("end")
 
 
-def _compact(cfg, st, o, d, m, pdf_new, ell, r, lb, bn, mid, last,
-             hit_slot):
+def _compact(st, o, d, m, pdf_new, ell, r, lb, bn, mid, last, hit_slot):
     """Survivors (hit slot major, octant minor) to the front; the lanes
     `last` (dead this wave, or outside the live set) after them in lane
     order, so that the rows past the live prefix stay where they are.
     Writes every pool column in place."""
-    dup = cfg.settings.dup_stage
     oct_ = ((d[:, 0] < 0).to(torch.int32)
             | ((d[:, 1] < 0).to(torch.int32) << 1)
             | ((d[:, 2] < 0).to(torch.int32) << 2))
     key = torch.where(last, 2 ** 30,
                       (torch.clamp_min(hit_slot, 0) << 3) | oct_)
-    if cfg.sort_mode:
-        # one stable sort order moves every plane and column
-        src = torch.sort(key, stable=True)[1]
-        src2 = (torch.sort(key + 1, stable=True)[1]
-                if dup == "permute" else None)
-
-        def move(v):
-            if src2 is None:
-                return v[..., src]
-            return plus_zero_times(v[..., src], v[..., src2])
-        for k, v in (("orig", o), ("dir", d), ("mask", m), ("L", ell)):
-            st[k].copy_(move(v.t()))
-        for k, v in (("bsdf_pdf", pdf_new), ("rng", r),
-                     ("pixel", st["pixel"]), ("lbn", lb), ("bounce", bn),
-                     ("medium_id", mid)):
-            st[k].copy_(move(v))
-        return
     # one gather moves every pool column (ops/permute.py): the kernel on
     # the card, the packed (P,16) cat, row gather and split on the CPU;
     # the kernel takes contiguous columns (.contiguous() returns those as
     # they are)
     src = torch.argsort(key, stable=True)
     pool_gather(st, src, *(t.contiguous() for t in (
-        o, d, m, ell, pdf_new, r, st["pixel"], lb, bn, mid)),
-        dup=dup == "permute")
+        o, d, m, ell, pdf_new, r, st["pixel"], lb, bn, mid)))
 
 
 class RegenIntegrator:
@@ -602,9 +508,7 @@ class RegenIntegrator:
         def out(t):
             return t.clone() if copy else t
         if self.stop_after_waves:
-            sort_mode = self.settings.regen_permute == "sort"
-            vec = {k: (st[k].t() if sort_mode else st[k]).clone()
-                   for k in ("orig", "dir", "mask", "L")}
+            vec = {k: st[k].clone() for k in ("orig", "dir", "mask", "L")}
             live = st["active"].clone()
             vec["L"] = torch.where(live[:, None], vec["L"], 0.0)
             return {**vec, **{k: out(st[k]) for k in (

@@ -42,8 +42,12 @@ from .bssrdf_shade import bssrdf_scatter
 
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
-    """Static configuration; the same fields and defaults as the JAX
-    package's RenderSettings. Fields that tune the TPU packet kernel's
+    """Static configuration; the JAX package's RenderSettings fields and
+    defaults, less two (tests/torch_settings.py: JAX_ONLY): the JAX
+    bench's stage-duplication hook (the port prices a stage by its stage
+    marks, ops/marks.py) and the choice of compaction permute (the port
+    has one, ops/permute.py: pool_gather). Passing either is a TypeError,
+    as for any unknown field. Fields that tune the TPU packet kernel's
     schedule (packet_*, anyhit_early_stop, trace_active_prefix) are kept so
     that one settings object describes a render in both packages; the
     port's traversal returns the same result for every value of them."""
@@ -67,15 +71,8 @@ class RenderSettings:
     # regen pool order: "compact" moves the survivors to the front every
     # wave; "inplace" respawns dead lanes where they died
     regen_order: str = "compact"
-    # compact permute: "gather" = one row gather of the packed pool,
-    # "sort" = the vector state carried as per-channel planes, each moved
-    # by the same stable sort order
-    regen_permute: str = "gather"
     # regen pool width cap in lanes; <= 0 means image-sized
     pool_lanes: int = 1 << 20
-    # profiling hook of the JAX bench ("" = off): the regen wave runs this
-    # stage twice and drops the duplicate (regen.DUP_STAGES)
-    dup_stage: str = ""
     # how radiance reaches the image: "ring"/"deferred" bank it on the path
     # and add it at the path's death, "wave" adds every wave (regen.py)
     scatter_mode: str = "ring"
@@ -254,16 +251,6 @@ def env_tex_merged(scene, settings: RenderSettings, raydir, bsdf_pdf,
                                hit_uv)
 
 
-def plus_zero_times(x, dup):
-    """x + 0 * dup with x's bits, the consumer of a dup_stage duplicate.
-    A float32 tensor is added as int32 bits: the JAX hook's x + 0.0 * dup
-    turns -0.0 into +0.0 and a non-finite duplicate into NaN."""
-    if x.dtype == torch.float32:
-        return (x.view(torch.int32) + 0 * dup.view(torch.int32)).view(
-            torch.float32)
-    return x + 0 * dup
-
-
 def distant_light(settings: RenderSettings, device):
     """(unit direction, radiance) [3] f32 tensors of the distant light, or
     None when it is off."""
@@ -276,7 +263,7 @@ def distant_light(settings: RenderSettings, device):
 
 def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
                medium_id, surf, hit, tex, radiance, env_rotation, light,
-               count_rays=False, dup_stage="", mark=no_mark):
+               count_rays=False, mark=no_mark):
     """The surface half of a segment, shared by both integrators: material,
     emission, the BSDF draw, the BSSRDF probe loop, env NEE with MIS, the
     distant light, the bounce budget and medium tracking, on the lanes
@@ -291,12 +278,7 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
     n_shadow is the count of shadow rays traced (a device scalar) with
     count_rays, else 0. mark(stage) marks the start of each stage
     (ops/marks.py); the regen wave passes its with_stats call's marker,
-    every other caller none.
-
-    dup_stage (passed by the regen wave only): "texture" (when the texture
-    is fetched here), "shade", "sample_env" or "shadow_trace" runs that
-    stage a second time, perturbed, and drops the duplicate's result as
-    plus_zero_times does, so the outputs keep their bits."""
+    every other caller none."""
     hit_uv, smooth_n, mat_id, tri_n, hitpoint = hit
     mark("material")
     mat = gather_material(scene, mat_id)
@@ -306,28 +288,15 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
     if settings.use_texture:
         if tex is None:
             tex = texture_radiance(scene, hit_uv)
-            if dup_stage == "texture":
-                tex = plus_zero_times(tex,
-                                       texture_radiance(scene, hit_uv + 1e-7))
         objcol = torch.where((mat["useTexture"] != 0)[:, None], tex, objcol)
     into = dot(n, raydir) < 0.0
     nl = torch.where(into[:, None], n, -n)
     radiance = radiance + torch.where(surf[:, None], mask * mat["emit"], 0.0)
 
     mark("shade")
-    rng_in = rng
     rng, next_dir, mask_mul, offset, term, binc, aux = shade(
         scene, settings, rng, raydir, n, nl, into, mat, objcol,
         mat_id=mat_id)
-    if dup_stage == "shade":
-        # the same pre-draw rng state; the perturbed direction makes the
-        # duplicate a distinct call
-        _, nd2, mm2, of2, _, _, _ = shade(
-            scene, settings, rng_in, raydir * 1.0000001, n, nl, into, mat,
-            objcol, mat_id=mat_id)
-        next_dir = plus_zero_times(next_dir, nd2)
-        mask_mul = plus_zero_times(mask_mul, mm2)
-        offset = plus_zero_times(offset, of2)
     new_orig = hitpoint + nl * (offset * RAY_MIN)[:, None]
     if settings.has_bssrdf:
         mark("bssrdf")
@@ -351,10 +320,6 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
         mark("sample_env")
         rng, (e1, e2) = RaySampler.next_n(rng, 2)
         d_env, pdf_env, L_env = sample_env(scene, e1, e2, env_rotation)
-        if dup_stage == "sample_env":
-            # swapped draws make the duplicate a distinct call
-            d2, p2, L2 = sample_env(scene, e2, e1, env_rotation)
-            pdf_env = plus_zero_times(pdf_env, p2 + d2[:, 0] + L2[:, 0])
         cos_e = dot(d_env, nl)
         diff_lane = surf & (mat["refltype"] == MAT_DIFF)
         cand = diff_lane & (cos_e > 0.0) & (pdf_env > 1e-12)
@@ -363,11 +328,6 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
         mark("shadow_trace")
         _s_slot, s_t = trace_rays(scene, settings, orig, d_env, RAY_MIN,
                                   RAY_MAX, anyhit=True, active=cand)
-        if dup_stage == "shadow_trace":
-            _, st2 = trace_rays(scene, settings, orig, d_env,
-                                RAY_MIN * 1.0000001, RAY_MAX, anyhit=True,
-                                active=cand)
-            s_t = plus_zero_times(s_t, st2)
         lit = cand & (s_t > 1e10)
         f = mat["kd"][:, None] * objcol * INV_PI
         pdf_b = torch.clamp_min(cos_e, 0.0) * INV_PI

@@ -148,7 +148,8 @@ back to the CPU. Phases, each fatal on failure:
 13. the surface fetch kernels (csrc/fetch.cu: fetch_attributes, one launch
    a regen wave and a bounce; csrc/envtex.cu: env_tex_merged, one launch a
    regen wave, and its texture-only form texture_radiance, one launch a
-   bounce and a BSSRDF probe; their launches are counted on every path
+   bounce; the BSSRDF probes fetch inside csrc/bssrdf.cu (phase 15); their
+   launches are counted on every path
    above, and 10e / 11c hold them to the profiled events): (13a) at
    P = 1,048,576 lanes with ~40% miss lanes (slot -1, non-finite hit
    points and uv), every material id and bsdf_pdf < 0 on ~30% of lanes,
@@ -175,13 +176,23 @@ back to the CPU. Phases, each fatal on failure:
    order, not a random one); (14c) TestObj and media regen renders, 2
    spp, replayed with the kernel and with the plain version, under
    torch's deterministic algorithms: bit for bit, one launch a wave;
+15. the BSSRDF probe loop's kernels (csrc/bssrdf.cu: probe_start,
+   probe_step, probe_finish, 1 + bssrdf_probes launches a wave around the
+   probe traces, counted on every path above): (15a) on the inputs of a
+   1920x1080 organic sss frame's first wave (2^20 lanes) the kernel path
+   of bssrdf_scatter equals its plain version (bssrdf_scatter_plain) in
+   every output, bit for bit; (15b) each kernel's bare launch, and the
+   kernel and plain paths captured with their probe traces, in turns,
+   beside the loop's byte bound (ops/bssrdf.py: io_bytes); (15c) sss regen
+   and bounce renders, 2 spp, replayed with the kernels and with the plain
+   path, under torch's deterministic algorithms: bit for bit;
 6. print the kernels line (rows 1-3 also carry their launches on the
    replayed bounce path, "launches_bounce", rows 1-2 on the viewer path,
    "launches_viewer"; the shade kernel and the surface fetches both, the
    fetches also on the sss regen path, "launches_sss_regen"), the card
    line, and the result line (last).
 
-Phases 4-14 replay captured steps (the default on a CUDA device): each
+Phases 4-15 replay captured steps (the default on a CUDA device): each
 renderer's first call of a key captures, and the timed calls come after a
 warm-up call of the same key.
 
@@ -1604,8 +1615,9 @@ FP32_OPS_PER_S = 67e12     # H100 SXM, FP32 outside the tensor cores
 
 def test_inputs(name):
     """tests/torch_<name>_inputs.py beside this script (no jax): the shade
-    kernel's inputs of every material branch ("shade") or the surface
-    fetches' ("fetch"), from a numpy seed."""
+    kernel's inputs of every material branch ("shade"), the surface
+    fetches' ("fetch"), from a numpy seed, the pool gather's ("permute")
+    or the BSSRDF probe loop's, recorded from a render ("bssrdf")."""
     import importlib
     d = os.path.join(HERE, "tests")
     if d not in sys.path:
@@ -1911,7 +1923,8 @@ def phase13(np, torch, dev, parts, sss_parts, W):
                                           "env_tex_merged"),
                         "testobj_bounce": ("fetch_attributes",
                                            "texture_radiance"),
-                        "sss_regen": tuple(FETCH_KERNELS)}[tag]
+                        "sss_regen": ("fetch_attributes",
+                                      "env_tex_merged")}[tag]
         for k in FETCH_KERNELS:
             assert (run["kernel"]["launches_per_frame"][k] > 0) == \
                 (k in want_kernels), (tag, k, run["kernel"])
@@ -2101,6 +2114,154 @@ def phase14(np, torch, dev, scenes, W):
             "frame (%d launches in %d waves), plain %.2f ms; bit for bit: %s"
             % (tag, W, W, run["kernel"]["ms_per_frame"],
                run["kernel"]["launches"], run["kernel"]["waves"],
+               run["plain"]["ms_per_frame"], bit_equal))
+        del imgs
+        torch.cuda.empty_cache()
+    return rec
+
+
+SSS_PROBE_SIZE = 256       # phase 15c's sss images
+
+
+def bssrdf_wave_inputs(torch, sss_parts, dev, W, H):
+    """(renderer, inputs) of bssrdf_scatter in the first wave of a W x H
+    organic sss frame (tests/torch_bssrdf_inputs.py: wave_inputs)."""
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    fb, mats, envmap, texture = sss_parts
+    r = Renderer(fb, mats, envmap=envmap, texture=texture, width=W,
+                 height=H, device=dev)
+    return r, test_inputs("bssrdf").wave_inputs(r)
+
+
+def phase15(np, torch, dev, sss_parts):
+    """Phase 15: the BSSRDF probe loop's kernels (csrc/bssrdf.cu) on the
+    inputs of a WAVE_W x WAVE_H organic sss frame's first wave (2^20
+    lanes): the kernel path of bssrdf_scatter against its plain version,
+    bit for bit; each kernel's bare launch, the kernel path and the plain
+    path (each captured with its probe traces) timed in turns beside the
+    byte bound; then SSS_PROBE_SIZE^2 sss regen and bounce renders with
+    the kernels against the same renders with the plain path. Returns the
+    record."""
+    import dataclasses
+    from tpu_pathtracer_torch.ops import bssrdf as bssrdf_ops
+    from tpu_pathtracer_torch.tracer import bssrdf_shade, wavefront
+    from tpu_pathtracer_torch.tracer.renderer import Renderer
+    from tpu_pathtracer_torch.utils.timing import cuda_ms
+    bi = test_inputs("bssrdf")
+    rec = {}
+
+    # ---- 15a. kernel path = plain path on a 1080p wave ----
+    r, inputs = bssrdf_wave_inputs(torch, sss_parts, dev, WAVE_W, WAVE_H)
+    scene, s = r.scene, r.settings
+    lanes = inputs["lanes"]
+    N = lanes.shape[0]
+    want = bi.run(scene, s, inputs, plain=True)
+    slots = []
+    saved = wavefront.trace_rays
+
+    def recording(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        slots.append(out)
+        return out
+    wavefront.trace_rays = recording
+    try:
+        got = bi.run(scene, s, inputs, plain=False)
+    finally:
+        wavefront.trace_rays = saved
+    torch.cuda.synchronize()
+    differ = bi.differing_lanes(got, want, lanes)
+    assert not any(differ.values()), differ
+    n_loop, n_ok = int(lanes.sum()), int(want[4].sum())
+    hit = torch.cat([sl[lanes & (sl >= 0)] for sl, _ in slots])
+    tri_rows = int(torch.unique(hit).numel())
+    P = s.bssrdf_probes
+    io = bssrdf_ops.io_bytes(N, n_loop, n_ok, P, tri_rows, 0,
+                             scene["mat_table"].shape[0])
+    rec["wave"] = {"lanes": N, "loop_lanes": n_loop, "ok_lanes": n_ok,
+                   "probe_hit_rows": tri_rows, "differing_lanes": differ}
+    log("  15a bssrdf kernels on a %dx%d sss wave (%d lanes, %d in the "
+        "loop, %d exits): = plain path bit for bit %s"
+        % (WAVE_W, WAVE_H, N, n_loop, n_ok, differ))
+
+    # ---- 15b. times: bare launches, both paths captured with traces ----
+    args = [inputs[k] for k in ("rng", "hitpoint", "normal2", "mat_id",
+                                "objcol", "lanes")]
+    fns = bssrdf_ops.launch_fn(scene, *args, P, s.use_texture, *slots[0])
+    static = {k: v for k, v in inputs.items()}
+    kernel_graph = graph_of(torch, lambda: bi.run(scene, s, static,
+                                                  plain=False))
+    plain_graph = graph_of(torch, lambda: bi.run(scene, s, static,
+                                                 plain=True))
+    times = {k: [] for k in bssrdf_ops.STAGES}
+    times.update(kernel_path=[], plain_path=[])
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "kernel":
+            for k in bssrdf_ops.STAGES:
+                times[k].append(cuda_ms(fns[k], 20))
+            times["kernel_path"].append(cuda_ms(kernel_graph.replay, 10))
+        else:
+            times["plain_path"].append(cuda_ms(plain_graph.replay, 5))
+    kernels_ms = min(times["probe_start"]) + (P - 1) * min(
+        times["probe_step"]) + min(times["probe_finish"])
+    bound = io / HBM_BYTES_PER_S * 1e3
+    rec["times"] = dict(times, kernels_ms=kernels_ms, bytes=io,
+                        bound_ms=bound, bound_share=bound / kernels_ms,
+                        traces_ms=min(times["kernel_path"]) - kernels_ms)
+    log("  15b a wave's probe loop: probe_start %s, probe_step %s, "
+        "probe_finish %s ms (bare); the %d launches %.4f ms against a "
+        "%.4f ms byte bound (%d B), %.1f%%; kernel path with its %d "
+        "traces %s ms, plain path %s ms (graphs)"
+        % (["%.4f" % x for x in times["probe_start"]],
+           ["%.4f" % x for x in times["probe_step"]],
+           ["%.4f" % x for x in times["probe_finish"]], P + 1, kernels_ms,
+           bound, io, 100 * bound / kernels_ms, P,
+           ["%.3f" % x for x in times["kernel_path"]],
+           ["%.3f" % x for x in times["plain_path"]]))
+    del r, inputs, static, got, want, slots, fns, kernel_graph, plain_graph
+    torch.cuda.empty_cache()
+
+    # ---- 15c. renders: the kernels against the plain path ----
+    rec["renders"] = {}
+    size = SSS_PROBE_SIZE
+    rc = bi.camera(size)
+    saved = bssrdf_shade.uses_kernels
+    for integrator in ("regen", "bounce"):
+        imgs, run = {}, {}
+        for mode in ("kernel", "plain"):
+            r = Renderer(sss_parts[0], sss_parts[1], envmap=sss_parts[2],
+                         texture=sss_parts[3], width=size, height=size,
+                         device=dev)
+            r.settings = dataclasses.replace(r.settings,
+                                             integrator=integrator)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                if mode == "plain":
+                    bssrdf_shade.uses_kernels = lambda device, st: False
+                r.render_frames(r.zeros_accum(), rc, 1, 2)      # captures
+                torch.cuda.synchronize()
+                zero_counts()
+                acc, ms = event_ms(torch, lambda: r.render_frames(
+                    r.zeros_accum(), rc, 1, 2))
+                counts = read_counts()
+            finally:
+                torch.use_deterministic_algorithms(False)
+                bssrdf_shade.uses_kernels = saved
+            imgs[mode] = acc
+            run[mode] = {"ms_per_frame": ms / 2, "launches": {
+                k: counts[k] for k in bssrdf_ops.STAGES}}
+            del r
+        k_l, p_l = run["kernel"]["launches"], run["plain"]["launches"]
+        assert k_l["probe_start"] > 0 and k_l["probe_finish"] == \
+            k_l["probe_start"] and k_l["probe_step"] == \
+            k_l["probe_start"] * (P - 1), k_l
+        assert not any(p_l.values()), p_l
+        bit_equal = torch.equal(imgs["kernel"], imgs["plain"])
+        assert bit_equal, (integrator, "the bssrdf kernels moved the image")
+        rec["renders"][integrator] = {"size": size, "bit_equal": bit_equal,
+                                      **run}
+        log("  15c sss %s %dx%d x 2 spp, deterministic: kernels %.2f ms a "
+            "frame (launches %s), plain path %.2f ms; bit for bit: %s"
+            % (integrator, size, size, run["kernel"]["ms_per_frame"], k_l,
                run["plain"]["ms_per_frame"], bit_equal))
         del imgs
         torch.cuda.empty_cache()
@@ -2684,6 +2845,11 @@ def main():
         "media": big_scenes["organic_media"]}, W)
     report["phase14"]["s"] = time.time() - t0
 
+    # ---- 15. the BSSRDF probe loop's kernels ----
+    t0 = time.time()
+    report["phase15"] = phase15(np, torch, dev, big_scenes["organic_sss"])
+    report["phase15"]["s"] = time.time() - t0
+
     assert "jax" not in sys.modules, "the port imported jax"
     assert not [m for m in sys.modules if m == "tpu_pathtracer"
                 or m.startswith("tpu_pathtracer.")], \
@@ -2830,7 +2996,10 @@ def main():
             assert launches[name] == 0, launches
             row["launches_main_path"] = launches[name]
             row["launches"] = row["launches_bounce"]
-        assert row["launches"] > 0 and row["launches_sss_regen"] > 0, row
+        # the BSSRDF probes fetch inside csrc/bssrdf.cu: texture_radiance
+        # is off the sss regen path
+        assert row["launches"] > 0 and (row["launches_sss_regen"] > 0) == \
+            (name != "texture_radiance"), row
         kernels.append(row)
     # the pool gather: no TPU kernel behind it (the JAX permute is XLA's
     # gather); one launch a compact wave on the main path
@@ -2844,6 +3013,23 @@ def main():
         "plain_ms": min(pk["plain_ms"]), "bound_ms": pk["bound_ms"],
         "bound_by": "bytes", "library_ms": min(pk["library_ms"])})
     assert kernels[-1]["launches"] > 0, kernels[-1]
+    # the BSSRDF probe loop's kernels: no TPU kernel behind them (XLA fuses
+    # the JAX bssrdf_scatter); 1 + bssrdf_probes launches a wave on the sss
+    # regen path (phase 7's frames); bound: the whole loop's bytes beside
+    # the launches' sum (phase 15b)
+    bt = report["phase15"]["times"]
+    for name in ("probe_start", "probe_step", "probe_finish"):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tpu_pathtracer_torch/csrc/bssrdf.cu",
+            "replaces": "tpu_pathtracer/tracer/bssrdf_shade.py:"
+                        "bssrdf_scatter",
+            "launches": sss_launch[name], "max_abs_err": 0.0,
+            "ms": min(bt[name]), "plain_ms": min(bt["plain_path"]),
+            "loop_kernels_ms": bt["kernels_ms"],
+            "loop_bound_ms": bt["bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
+        assert kernels[-1]["launches"] > 0, kernels[-1]
     report["kernels"] = kernels
     report["card"] = card
     report["total_s"] = time.time() - t_start

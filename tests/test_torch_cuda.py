@@ -1,6 +1,6 @@
 """The CUDA kernels (traversal, step-counting traversal, row gather and
 scatter, the shade kernel, the surface fetches, the viewer's image, the
-compaction permute's pool gather)
+compaction permute's pool gather, the BSSRDF probe loop's kernels)
 against their plain PyTorch versions, on the card, and the render
 paths that launch them (media, BSSRDF, bounce, chunks and shards, the regen
 orders, the device tonemap and the viewer's session,
@@ -26,7 +26,9 @@ kernels equal their plain versions bit for bit in every output on every
 lane, a NaN equal to a NaN, and so do renders with them. The image
 kernel gives the plain host path's bytes (pure data movement), and so
 does the pool gather its plain version's, in every column, and renders
-with it the plain version's.
+with it the plain version's. The BSSRDF probe loop's kernels give
+bssrdf_scatter_plain's bits in every output (is_mul and next_normal on the
+loop's lanes, where they hold values), and so do renders with them.
 """
 import functools
 
@@ -46,6 +48,7 @@ from torch_shade_inputs import mixed_inputs, kernel_args, plain_shade
 from torch_fetch_inputs import (
     kernel_inputs, run_plain, differing_lanes, plain_fetch)
 import torch_permute_inputs as permute_inputs
+import torch_bssrdf_inputs as bssrdf_inputs
 
 torch.set_num_threads(2)
 RAY_MIN, RAY_MAX = 1e-4, 1e20
@@ -1370,7 +1373,8 @@ def test_renders_with_the_fetch_kernels_equal_the_plain_versions(
     """A replayed render with the kernels (one launch each a wave or a
     bounce) equals the eager render with the plain versions bit for bit,
     under torch's deterministic algorithms; "bssrdf" is the regen render
-    of the subsurface variant, whose probes fetch through them too."""
+    of the subsurface variant, whose probes fetch inside the probe loop's
+    kernels (csrc/bssrdf.cu), so texture_radiance runs in bounce only."""
     import dataclasses
     from tpu_pathtracer_torch.tracer import device_loop, regen, wavefront
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -1400,7 +1404,7 @@ def test_renders_with_the_fetch_kernels_equal_the_plain_versions(
                 assert (moved["env_tex_merged"] > 0) == \
                     (integrator != "bounce"), moved
                 assert (moved["texture_radiance"] > 0) == \
-                    (integrator != "regen"), moved
+                    (integrator == "bounce"), moved
     finally:
         torch.use_deterministic_algorithms(False)
     assert torch.equal(imgs["kernel"], imgs["plain"])
@@ -1538,3 +1542,203 @@ def test_renders_with_the_pool_gather_kernel_equal_the_plain_version(
     finally:
         torch.use_deterministic_algorithms(False)
     assert torch.equal(imgs["kernel"], imgs["plain"])
+
+
+# ---- the BSSRDF probe loop's kernels (csrc/bssrdf.cu) ----
+
+BSSRDF_CASES = ([(n, False, 3) for n in (0, 1, 397, 4096, 65536)]
+                + [(65536, True, 3), (65536, False, 1), (65536, False, 5)])
+
+
+@functools.lru_cache(maxsize=None)
+def _bssrdf_wave(textured, probes):
+    """(scene, settings, inputs) of bssrdf_scatter in the first wave of a
+    256x256 organic sss render on the card (65,536 lanes)."""
+    r = bssrdf_inputs.organic_renderer("cuda", 256, textured=textured,
+                                       probes=probes)
+    return r.scene, r.settings, bssrdf_inputs.wave_inputs(r)
+
+
+def _bssrdf_case(n, textured, probes, offset=0):
+    scene, settings, inputs = _bssrdf_wave(textured, probes)
+    return scene, settings, bssrdf_inputs.spread_lanes(inputs, n, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,textured,probes", BSSRDF_CASES)
+def test_bssrdf_kernels_match_plain_on_card(device, n, textured, probes):
+    """The kernel path of bssrdf_scatter = bssrdf_scatter_plain on the
+    card, every output bit for bit (a NaN equal to a NaN): rng, ok and
+    the merged exit (new_orig, next_dir, mask_mul) on every lane, is_mul
+    and next_normal on the loop's lanes; organic sss inputs of a wave with
+    mixed loop lanes, a textured skin, 1, 3 and 5 probes; 1 + probes
+    launches."""
+    from tpu_pathtracer_torch.ops import bssrdf as bssrdf_ops
+    scene, settings, inputs = _bssrdf_case(n, textured, probes)
+    lanes = inputs["lanes"]
+    if n >= 4096:
+        assert 0 < int(lanes.sum()) < n
+    want = bssrdf_inputs.run(scene, settings, inputs, plain=True)
+    before = dict(bssrdf_ops.LAUNCHES)
+    got = bssrdf_inputs.run(scene, settings, inputs, plain=False)
+    torch.cuda.synchronize()
+    moved = {k: bssrdf_ops.LAUNCHES[k] - before[k] for k in before}
+    assert moved == ({"probe_start": 1, "probe_step": probes - 1,
+                      "probe_finish": 1} if n else
+                     {k: 0 for k in before}), moved
+    differ = bssrdf_inputs.differing_lanes(got, want, lanes)
+    assert not any(differ.values()), differ
+    if n >= 4096:
+        assert 0 < int(want[4].sum()) < int(lanes.sum())
+
+
+@pytest.mark.cuda
+def test_bssrdf_kernels_replay_in_a_cuda_graph(device):
+    """bssrdf_scatter's kernel path (the kernels and the probe traces)
+    captured in a CUDA graph and replayed on new inputs copied into the
+    captured ones: the plain version's bits on the new inputs; the counts
+    move at the capture only."""
+    from tpu_pathtracer_torch.ops import bssrdf as bssrdf_ops
+    scene, settings, first = _bssrdf_case(4096, False, 3)
+    second = _bssrdf_case(4096, False, 3, offset=7)[2]
+    static = bssrdf_inputs.spread_lanes(first, 4096)
+
+    def call():
+        return bssrdf_inputs.run(scene, settings, static, plain=False)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    before = dict(bssrdf_ops.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = call()
+    assert bssrdf_ops.LAUNCHES["probe_start"] == before["probe_start"] + 1
+    counted = dict(bssrdf_ops.LAUNCHES)
+    for src in (first, second):
+        for k, v in src.items():
+            if k == "mat":
+                for c in v:
+                    static[k][c].copy_(v[c])
+            elif k == "shade_out":
+                for a, b in zip(static[k], v):
+                    a.copy_(b)
+            else:
+                static[k].copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = bssrdf_inputs.run(scene, settings, src, plain=True)
+        differ = bssrdf_inputs.differing_lanes(outs, want, src["lanes"])
+        assert not any(differ.values()), differ
+    assert bssrdf_ops.LAUNCHES == counted
+
+
+@pytest.mark.cuda
+def test_bssrdf_refused_calls_raise(device, monkeypatch):
+    """A nonzero code from the C entry raises RuntimeError and counts
+    nothing; probes outside [1, 255], a wrong dtype or a tensor on another
+    device raise ValueError before any launch."""
+    import dataclasses
+    from tpu_pathtracer_torch.ops import bssrdf as bssrdf_ops
+    scene, settings, inputs = _bssrdf_case(397, False, 3)
+    before = dict(bssrdf_ops.LAUNCHES)
+    for bad in (dataclasses.replace(settings, bssrdf_probes=0),
+                dataclasses.replace(settings, bssrdf_probes=256)):
+        with pytest.raises(ValueError, match="bssrdf_probes"):
+            bssrdf_inputs.run(scene, bad, inputs, plain=False)
+    wrong = dict(inputs, mat_id=inputs["mat_id"].long())
+    with pytest.raises(ValueError, match="mat_id"):
+        bssrdf_inputs.run(scene, settings, wrong, plain=False)
+    host = dict(inputs, objcol=inputs["objcol"].cpu())
+    with pytest.raises(ValueError, match="objcol"):
+        bssrdf_inputs.run(scene, settings, host, plain=False)
+    monkeypatch.setattr(bssrdf_ops, "_kernel", lambda: (lambda *a: 7))
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        bssrdf_inputs.run(scene, settings, inputs, plain=False)
+    assert bssrdf_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_bssrdf_bare_launches_count_nothing(device):
+    """launch_fn's three launches run on the card, give the wrapper's
+    first launch's bits for probe_start, and count nothing."""
+    from tpu_pathtracer_torch.ops import bssrdf as bssrdf_ops
+    scene, settings, inputs = _bssrdf_case(4096, False, 3)
+    args = [inputs[k] for k in ("rng", "hitpoint", "normal2", "mat_id",
+                                "objcol", "lanes")]
+    slot = torch.full((4096,), -1, dtype=torch.int32, device=device)
+    dist = torch.ones((4096,), dtype=torch.float32, device=device)
+    want = bssrdf_inputs.run(scene, settings, inputs, plain=True)
+    before = dict(bssrdf_ops.LAUNCHES)
+    fns = bssrdf_ops.launch_fn(scene, *args, settings.bssrdf_probes,
+                               settings.use_texture, slot, dist)
+    for name in bssrdf_ops.STAGES:
+        out = fns[name]()
+        torch.cuda.synchronize()
+    assert torch.equal(out[0], want[0])
+    assert bssrdf_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["regen", "bounce"])
+def test_renders_with_the_bssrdf_kernels_equal_the_plain_path(
+        device, integrator, monkeypatch):
+    """A replayed render of the subsurface variant with the kernels (1 +
+    bssrdf_probes launches a wave or a bounce) equals the eager render with
+    bssrdf_scatter_plain bit for bit, under torch's deterministic
+    algorithms."""
+    import dataclasses
+    from tpu_pathtracer_torch.ops import bssrdf as bssrdf_ops
+    from tpu_pathtracer_torch.tracer import bssrdf_shade, device_loop
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        imgs = {}
+        for mode in ("kernel", "plain"):
+            r, rc = _graph_case("bssrdf", device)
+            r.settings = dataclasses.replace(r.settings,
+                                             integrator=integrator)
+            if mode == "plain":
+                monkeypatch.setattr(bssrdf_shade, "uses_kernels",
+                                    lambda device, settings: False)
+                before = dict(bssrdf_ops.LAUNCHES)
+                with device_loop.no_graphs():
+                    imgs[mode] = r.render_frames(r.zeros_accum(), rc, 1, 2)
+                assert bssrdf_ops.LAUNCHES == before
+                monkeypatch.undo()
+            else:
+                r.render_frames(r.zeros_accum(), rc, 1, 2)   # captures
+                before = dict(bssrdf_ops.LAUNCHES)
+                imgs[mode] = r.render_frames(r.zeros_accum(), rc, 1, 2)
+                moved = {k: bssrdf_ops.LAUNCHES[k] - before[k]
+                         for k in before}
+                steps = moved["probe_start"]
+                assert steps > 0 and moved == {
+                    "probe_start": steps, "probe_finish": steps,
+                    "probe_step": steps * (r.settings.bssrdf_probes - 1)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(imgs["kernel"], imgs["plain"])
+
+
+@pytest.mark.cuda
+def test_replayed_bssrdf_counters_equal_the_eager_call(device):
+    """The BSSRDF counters of a replayed with_stats call (graphs at every
+    drain width) equal those of the same call run eagerly, and the two
+    images are the same bits."""
+    from tpu_pathtracer_torch.tracer import device_loop
+    r, rc = _graph_case("bssrdf", device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        r.render_frames(r.zeros_accum(), rc, 1, 2, with_stats=True)
+        replayed = r.render_frames(r.zeros_accum(), rc, 1, 2,
+                                   with_stats=True)[0]
+        got = dict(r.regen_integrator(True).last_counters)
+        with device_loop.no_graphs():
+            eager = r.render_frames(r.zeros_accum(), rc, 1, 2,
+                                    with_stats=True)[0]
+        want = r.regen_integrator(True).last_counters
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert got == want and 0 < want["bssrdf_exits"] < want["bssrdf_lanes"]
+    assert torch.equal(replayed, eager)

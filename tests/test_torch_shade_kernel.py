@@ -227,13 +227,17 @@ def test_kernel_reads_the_table_by_the_mat_cols_layout():
     tracer/wavefront.py's _MAT_COLS (which pack_mat_table writes and
     gather_material reads) and the refltypes by scene/config.py's
     numbers."""
-    src = open(tshade.__file__.replace("ops/shade.py", "csrc/shade.cu")).read()
+    from tpu_pathtracer_torch.utils import cuda_build
+    # the source as nvcc compiles it: the columns live in csrc/lane_math.cuh
+    src = cuda_build.source_text("shade")
     consts = {m.group(1): int(m.group(2))
               for m in re.finditer(r"\bk(\w+) = (\d+)", src)}
     for name, col in (("ColRefltype", "refltype"), ("ColAlphax", "alphax"),
                       ("ColAlphay", "alphay"), ("ColKd", "kd"),
                       ("ColKs", "ks"), ("ColEtaT", "etaT"), ("ColF0", "F0"),
-                      ("ColTangent", "tangent")):
+                      ("ColTangent", "tangent"), ("ColObjcol", "objcol"),
+                      ("ColUseNormal", "useNormal"),
+                      ("ColUseTexture", "useTexture"), ("ColMfp", "mfp")):
         assert consts[name] == twf._MAT_COLS[col][0], name
     assert consts["MatCols"] == tshade.MAT_COLS == max(
         b for _, b in twf._MAT_COLS.values())

@@ -335,8 +335,10 @@ def test_io_bytes_of_a_hand_counted_call(name, lane, row):
 # ---- what the sources must agree with ----
 
 def _consts(source):
-    src = open(os.path.join(REPO, "tpu_pathtracer_torch", "csrc",
-                            source)).read()
+    """The constants of csrc/<source> as nvcc compiles it, with the csrc
+    headers it includes (the table layouts live in csrc/surface.cuh)."""
+    from tpu_pathtracer_torch.utils import cuda_build
+    src = cuda_build.source_text(source[:-len(".cu")])
     return {m.group(1): int(m.group(2))
             for m in re.finditer(r"\bk(\w+) = (\d+)", src)}
 

@@ -47,83 +47,26 @@
 // bilinear blend ((q0 (1-fx)) (1-fy) + (q1 fx) (1-fy)) + ... left to
 // right; power_heuristic's and the pdf's tensor / tensor an IEEE division;
 // atan2f, acosf and sqrtf the CUDA math library's, as torch calls them.
+// The texture lookup is csrc/surface.cuh: texture_lookup, which
+// csrc/bssrdf.cu's probe loop shares.
 // Plain PyTorch versions: ops/surface_fetch.py.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "surface.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kEnvCols = 16, kTexCols = 12;
 
-constexpr double kPi = 3.1415926535897932384626433832795;
-constexpr double kTwoPi = 2.0 * kPi;
-
-// a Python float as torch hands it to a float32 kernel
-#define F32(x) static_cast<float>(x)
-
-// torch.remainder(a, 1.0) on a float tensor
-__device__ __forceinline__ float remainder1(float a) {
-  float m = fmodf(a, 1.0f);
-  if (m < 0.0f) m += 1.0f;  // m != 0 and its sign differs from 1's
-  return m;
-}
-// torch.remainder(a, b) on an int32 tensor, b > 0
-__device__ __forceinline__ int imod(int a, int b) {
-  const int r = a % b;
-  return r < 0 ? r + b : r;  // r != 0 and its sign differs from b's
-}
 __device__ __forceinline__ int iclamp(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
-// torch.clamp / clamp_min with scalar bounds: NaN passes through
+// torch.clamp with scalar bounds: NaN passes through
 __device__ __forceinline__ float clamp(float v, float lo, float hi) {
   return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return isnan(v) ? v : fmaxf(v, lo);
-}
-
-// scene/texture.py: _bilinear_rows, channel c
-__device__ __forceinline__ float bilinear(const float* q, float fx, float fy,
-                                          int c) {
-  return q[c] * (1.0f - fx) * (1.0f - fy) + q[3 + c] * fx * (1.0f - fy) +
-         q[6 + c] * (1.0f - fx) * fy + q[9 + c] * fx * fy;
-}
-
-// the texture half: scene/texture.py's wrap / wrap bilinear of hit_uv;
-// (fx, fy) and the quad row's index in the texture's own rows
-struct TexLookup {
-  float fx, fy;
-  int row;
-};
-
-__device__ __forceinline__ TexLookup texture_lookup(float2 uv, int Ht,
-                                                    int Wt) {
-  const float u = remainder1(uv.x);
-  const float v = remainder1(uv.y);
-  const float x = u * F32(Wt) - 0.5f;
-  const float y = v * F32(Ht) - 0.5f;
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const int x0i = imod(static_cast<int>(x0), Wt);
-  const int y0i = imod(static_cast<int>(y0), Ht);
-  return {x - x0, y - y0, y0i * Wt + x0i};
-}
-
-template <int kCols>
-__device__ __forceinline__ void load_row(const float4* table, int64_t row,
-                                         float* q) {
-  const float4* r = table + row * (kCols / 4);
-#pragma unroll
-  for (int k = 0; k < kCols / 4; ++k) {
-    const float4 v = __ldg(r + k);
-    q[4 * k] = v.x;
-    q[4 * k + 1] = v.y;
-    q[4 * k + 2] = v.z;
-    q[4 * k + 3] = v.w;
-  }
 }
 
 __global__ void __launch_bounds__(kBlock)

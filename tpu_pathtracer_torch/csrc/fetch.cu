@@ -32,35 +32,18 @@
 // dot is (x*x + y*y) + z*z, `1.0 - v - w` two subtractions, the
 // interpolation ((u*a + v*b) + w*c), tensor / tensor an IEEE division,
 // and a Python constant rounded to float before it meets a tensor.
+// The row's interpolation is csrc/surface.cuh: fetch_row, which
+// csrc/bssrdf.cu's probe loop shares.
 // Plain PyTorch version: ops/surface_fetch.py, fetch_attributes_plain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "surface.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
-// tracer/wavefront.py: pack_tri_attributes
-constexpr int kAttrCols = 28;
-constexpr int kColUv = 9, kColNrm = 15, kColMat = 24, kColGeoN = 25;
-constexpr int kRowVec4 = kAttrCols / 4;
-
-// a Python float as torch hands it to a float32 kernel
-#define F32(x) static_cast<float>(x)
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 sub(V3 a, V3 b) {
-  return {a.x - b.x, a.y - b.y, a.z - b.z};
-}
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ V3 at3(const float* a, int c) {
-  return {a[c], a[c + 1], a[c + 2]};
-}
 
 __global__ void __launch_bounds__(kBlock)
     fetch_attributes_kernel(int64_t n, const int32_t* __restrict__ hit_slot,
@@ -72,46 +55,11 @@ __global__ void __launch_bounds__(kBlock)
                             float* __restrict__ tri_n) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
   if (i >= n) return;
-  const int32_t slot = hit_slot[i];
-  // torch.clamp_min(hit_slot, 0)
-  const float4* row = table + static_cast<int64_t>(slot < 0 ? 0 : slot) *
-                                  kRowVec4;
-  float a[kAttrCols];
-#pragma unroll
-  for (int k = 0; k < kRowVec4; ++k) {
-    const float4 q = __ldg(row + k);
-    a[4 * k] = q.x;
-    a[4 * k + 1] = q.y;
-    a[4 * k + 2] = q.z;
-    a[4 * k + 3] = q.w;
-  }
-  const V3 hp = {hitpoint[3 * i], hitpoint[3 * i + 1], hitpoint[3 * i + 2]};
-  // core/vecmath.py: barycentric(hitpoint, p0, p1, p2)
-  const V3 p0 = at3(a, 0), p1 = at3(a, 3), p2 = at3(a, 6);
-  const V3 v0 = sub(p1, p0);
-  const V3 v1 = sub(p2, p0);
-  const V3 v2 = sub(hp, p0);
-  const float d00 = dot(v0, v0);
-  const float d01 = dot(v0, v1);
-  const float d11 = dot(v1, v1);
-  const float d20 = dot(v2, v0);
-  const float d21 = dot(v2, v1);
-  float denom = d00 * d11 - d01 * d01;
-  if (fabsf(denom) < F32(1e-30)) denom = F32(1e-30);
-  const float v = (d11 * d20 - d01 * d21) / denom;
-  const float w = (d00 * d21 - d01 * d20) / denom;
-  const float u = 1.0f - v - w;
-  hit_uv[i] = make_float2(
-      u * a[kColUv] + v * a[kColUv + 2] + w * a[kColUv + 4],
-      u * a[kColUv + 1] + v * a[kColUv + 3] + w * a[kColUv + 5]);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    smooth_n[3 * i + c] = u * a[kColNrm + c] + v * a[kColNrm + 3 + c] +
-                          w * a[kColNrm + 6 + c];
-    // torch.where(hit_slot >= 0, a[:, 25:28], 0.0)
-    tri_n[3 * i + c] = slot >= 0 ? a[kColGeoN + c] : 0.0f;
-  }
-  mat_id[i] = __float_as_int(a[kColMat]);
+  const Attributes a = fetch_row(table, hit_slot[i], load3(hitpoint + 3 * i));
+  hit_uv[i] = a.uv;
+  store3(smooth_n + 3 * i, a.smooth_n);
+  mat_id[i] = a.mat_id;
+  store3(tri_n + 3 * i, a.tri_n);
 }
 
 }  // namespace

@@ -34,134 +34,32 @@
 // (x*x + y*y) + z*z; normalize is a * (1 / sqrtf(max(dot, 1e-20)));
 // `1.0 / t` is torch's reciprocal (an IEEE division) times 1; `t / scalar`
 // on the card is t * (1 / scalar) (torch's div by a CPU scalar); a Python
-// constant is rounded to float before it meets a tensor (F32 below);
+// constant is rounded to float before it meets a tensor (F32);
 // clamp_min / clamp_max / maximum pass NaN through as torch's do; sinf,
 // cosf, tanf, atanf and sqrtf are the CUDA math library's, as torch calls
 // them. torch.linalg.cross is one CUDA kernel of PyTorch's build, which
-// contracts x*y - z*w into fmaf(x, y, -(z*w)); cross() below does the same.
+// contracts x*y - z*w into fmaf(x, y, -(z*w)); cross() does the same. The
+// helpers that csrc/bssrdf.cu shares live in csrc/lane_math.cuh.
 // Plain PyTorch version: ops/shade.py, shade_plain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_math.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
 
-// material table columns (tracer/wavefront.py: _MAT_COLS)
-constexpr int kColRefltype = 0, kColAlphax = 7,
-              kColAlphay = 8, kColKd = 9, kColKs = 10, kColEtaT = 11,
-              kColF0 = 14, kColTangent = 17, kMatCols = 31;
 // refltype (scene/config.py)
 constexpr int kMatEmit = 0, kMatGlass = 2, kMatRefl = 3, kMatDiffRefl = 4,
               kMatFresnel = 5, kMatNull = 6, kMatSubsurface = 7;
-
-// core/vecmath.py's Python constants, as doubles
-__device__ const float kZeroRow[kMatCols] = {};
-
-constexpr double kPi = 3.1415926535897932384626433832795;
-constexpr double kTwoPi = 2.0 * kPi;
-constexpr double kPiOver2 = kPi / 2.0;
-constexpr double kPiOver4 = kPi / 4.0;
-constexpr double kSqrtOneThird = 0.5773502691896257645091487805019574556476;
-
-// a Python float as torch hands it to a float32 kernel
-#define F32(x) static_cast<float>(x)
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 add(V3 a, V3 b) {
-  return {a.x + b.x, a.y + b.y, a.z + b.z};
-}
-__device__ __forceinline__ V3 sub(V3 a, V3 b) {
-  return {a.x - b.x, a.y - b.y, a.z - b.z};
-}
-// a[..., None] * s in torch: each component times the scalar
-__device__ __forceinline__ V3 scale(V3 a, float s) {
-  return {a.x * s, a.y * s, a.z * s};
-}
-__device__ __forceinline__ V3 mul(V3 a, V3 b) {
-  return {a.x * b.x, a.y * b.y, a.z * b.z};
-}
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-
-// torch.clamp_min / clamp_max / maximum: NaN passes through
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return isnan(v) ? v : fmaxf(v, lo);
-}
-__device__ __forceinline__ float clamp_max(float v, float hi) {
-  return isnan(v) ? v : fminf(v, hi);
-}
-__device__ __forceinline__ float maximum(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
-}
-// 1.0 / t: torch's reciprocal (IEEE division), then times 1 (exact)
-__device__ __forceinline__ float rcp(float v) { return 1.0f / v; }
-
-__device__ __forceinline__ float cross_term(float p, float q, float r,
-                                            float s) {
-  return __fmaf_rn(p, q, -(r * s));
-}
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {cross_term(a.y, b.z, a.z, b.y), cross_term(a.z, b.x, a.x, b.z),
-          cross_term(a.x, b.y, a.y, b.x)};
-}
-
-__device__ __forceinline__ V3 normalize(V3 a) {
-  return scale(a, rcp(sqrtf(clamp_min(dot(a, a), F32(1e-20)))));
-}
-
-// d - n * 2.0 * dot(n, d)
-__device__ __forceinline__ V3 reflect(V3 d, V3 n) {
-  return sub(d, scale(scale(n, 2.0f), dot(n, d)));
-}
-
-__device__ __forceinline__ float pow5(float x) {
-  const float x2 = x * x;
-  return x2 * x2 * x;
-}
 
 // F0 + (1 - F0) * pow5(1 - cos), F0 per channel
 __device__ __forceinline__ V3 schlick(V3 F0, float cos_theta) {
   const float p = pow5(1.0f - cos_theta);
   return {F0.x + (1.0f - F0.x) * p, F0.y + (1.0f - F0.y) * p,
           F0.z + (1.0f - F0.z) * p};
-}
-
-// core/vecmath.py: make_basis
-__device__ __forceinline__ void make_basis(V3 n, V3* u, V3* v) {
-  const float ax = fabsf(n.x), ay = fabsf(n.y);
-  const float s = F32(kSqrtOneThird);
-  const V3 w = ax < s ? V3{1.0f, 0.0f, 0.0f}
-                      : (ay < s ? V3{0.0f, 1.0f, 0.0f}
-                                : V3{0.0f, 0.0f, 1.0f});
-  *u = normalize(cross(n, w));
-  *v = cross(n, *u);
-}
-
-// core/vecmath.py: cosine_sample_hemisphere (concentric disk, then the
-// basis about n)
-__device__ V3 cosine_sample_hemisphere(float u1, float u2, V3 n) {
-  const float ox = 2.0f * u1 - 1.0f;
-  const float oy = 2.0f * u2 - 1.0f;
-  const bool use_x = fabsf(ox) > fabsf(oy);
-  const float r = use_x ? ox : oy;
-  const float safe_ox = ox == 0.0f ? 1.0f : ox;
-  const float safe_oy = oy == 0.0f ? 1.0f : oy;
-  const float theta =
-      use_x ? F32(kPiOver4) * (oy / safe_ox)
-            : F32(kPiOver2) - F32(kPiOver4) * (ox / safe_oy);
-  const bool degenerate = ox == 0.0f && oy == 0.0f;
-  const float dx = degenerate ? 0.0f : r * cosf(theta);
-  const float dy = degenerate ? 0.0f : r * sinf(theta);
-  const float z = sqrtf(clamp_min(1.0f - dx * dx - dy * dy, 0.0f));
-  V3 u, v;
-  make_basis(n, &u, &v);
-  return normalize(add(add(scale(u, dx), scale(v, dy)), scale(n, z)));
 }
 
 // materials/bsdf.py: _ggx_sample_normal_iso
@@ -221,21 +119,6 @@ __device__ __forceinline__ float dielectric_fresnel(bool into, float cos_i,
   const float R4 = etaT_ * cos_t;
   const float rp = (R1 - R2) / clamp_min(R1 + R2, F32(1e-12));
   const float rs = (R3 - R4) / clamp_min(R3 + R4, F32(1e-12));
-  return (rp * rp + rs * rs) * 0.5f;
-}
-
-// materials/fresnel.py: fresnel_dielectric(cos_i, 1.0, eta_t)
-__device__ __forceinline__ float fresnel_dielectric(float cos_i,
-                                                    float eta_t) {
-  const float eta = rcp(eta_t);
-  const float cos_t =
-      sqrtf(clamp_min(1.0f - (1.0f - cos_i * cos_i) * eta * eta, 0.0f));
-  const float r1 = eta_t * cos_i;
-  const float r2 = cos_t;                      // 1.0 * cos_t
-  const float r3 = cos_i;                      // 1.0 * cos_i
-  const float r4 = eta_t * cos_t;
-  const float rp = (r1 - r2) / (r1 + r2);
-  const float rs = (r3 - r4) / (r3 + r4);
   return (rp * rp + rs * rs) * 0.5f;
 }
 
@@ -313,23 +196,6 @@ __device__ void fresnel_blend(float u1, float u2, float u3, V3 raydir, V3 nl,
   *beta = scale(f, cos_wi / clamp_min(pdf, F32(1e-20)));
 }
 
-// core/rng.py: RaySampler.next in uint32 arithmetic; the unit float from
-// the top 24 bits
-__device__ __forceinline__ float next_unit(uint32_t* state) {
-  const uint32_t s = *state * 747796405u + 2891336453u;
-  *state = s;
-  uint32_t w = ((s >> ((s >> 28) + 4u)) ^ s) * 277803737u;
-  w = (w >> 22) ^ w;
-  return static_cast<float>(w >> 8) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
-__device__ __forceinline__ void store3(float* p, V3 v) {
-  p[0] = v.x;
-  p[1] = v.y;
-  p[2] = v.z;
-}
-
 __global__ void __launch_bounds__(kBlock)
 shade_kernel(int64_t n_lanes, const int64_t* __restrict__ rng_in,
              const float* __restrict__ raydir_p, int64_t s_dir,
@@ -359,8 +225,7 @@ shade_kernel(int64_t n_lanes, const int64_t* __restrict__ rng_in,
 
   // an id outside [0, M) reads a row of zeros, as gather_material's does
   const int32_t id = mat_id[i];
-  const float* row = id >= 0 && id < n_mats ? table + id * kMatCols
-                                             : kZeroRow;
+  const float* row = mat_row(table, n_mats, id);
   const int refltype = static_cast<int>(__ldg(row + kColRefltype));
   const float alphax = __ldg(row + kColAlphax);
   const float kd = __ldg(row + kColKd);

@@ -14,6 +14,12 @@ src/bssrdf.cuh:8,262-276,355-360,402-405), the reference's default. The
 tabulated Catmull-Rom path's table is produced by bssrdf/tabulate.py and
 validated against it in tests.
 
+On the card with the SoE profile, `bssrdf_scatter` runs the loop's
+per-lane work in the kernels of csrc/bssrdf.cu (ops/bssrdf.py) around the
+same masked traces; `bssrdf_scatter_plain`, the code below, is the plain
+version they give the bits of, and what a CPU tensor and the tabulated
+profile run.
+
 Reference quirks kept deliberately:
 * the r1-reuse cascade in probe-axis selection (src/bssrdf.cuh:291-297) and
   the subsequent `r1 < 0.5` radius x3 test against the *modified* r1
@@ -175,17 +181,54 @@ def _sample_probe_ray(r1, r2, r3, normal, hitpoint, sigma_t, rho, vx, vy,
     return orig, probe_dir, ray_len, radius
 
 
+def uses_kernels(device, settings):
+    """Whether bssrdf_scatter runs the probe loop's kernels
+    (ops/bssrdf.py) on tensors of `device`: a CUDA device with the SoE
+    profile. The tabulated profile takes the plain version everywhere."""
+    return torch.device(device).type == "cuda" and settings.bssrdf_use_soe
+
+
 def bssrdf_scatter(scene, settings, rng, hitpoint, normal2, mat, mat_id,
-                   objcol, lanes):
+                   objcol, lanes, shade_out=None):
     """The probe loop. Returns (rng, new_orig, new_dir, mask_mul, ok,
     is_mul, next_normal): is_mul is mask_mul before the exit Fresnel factor
     and next_normal the unit normal at the exit point, both for the distant
     light's NEE there. 4 RNG draws per probe and 2 after the loop.
 
     Only `lanes` participate; others get don't-care outputs with ok=False.
-    Each probe segment is one closest-hit trace under the mask `lanes` with
-    the per-lane tmax `probe_len` (on the card: the kernel's mask +
-    per-lane-tmax form)."""
+    shade_out: the surface draw's (new_orig, next_dir, mask_mul) [N,3];
+    given, the returned three are those with the exit's on the ok lanes
+    (on the card written into them in place), which makes them defined on
+    every lane.
+
+    A CUDA tensor with the SoE profile runs the kernels of ops/bssrdf.py
+    around the probe traces, or raises; a CPU tensor, and the tabulated
+    profile on any device, run bssrdf_scatter_plain. Both give the same
+    bits (uses_kernels)."""
+    if not uses_kernels(hitpoint.device, settings):
+        out = bssrdf_scatter_plain(scene, settings, rng, hitpoint, normal2,
+                                   mat, mat_id, objcol, lanes)
+        if shade_out is None:
+            return out
+        ok = out[4][:, None]
+        return (out[0],) + tuple(torch.where(ok, b, s) for b, s in zip(
+            out[1:4], shade_out)) + out[4:]
+    from .wavefront import trace_rays
+    from ..ops.bssrdf import probe_loop
+
+    def trace(orig, raydir, tmax):
+        return trace_rays(scene, settings, orig, raydir, RAY_MIN, tmax,
+                          anyhit=False, active=lanes)
+    return probe_loop(scene, rng, hitpoint, normal2, mat_id, objcol, lanes,
+                      settings.bssrdf_probes, settings.use_texture, trace,
+                      shade_out)
+
+
+def bssrdf_scatter_plain(scene, settings, rng, hitpoint, normal2, mat,
+                         mat_id, objcol, lanes):
+    """bssrdf_scatter in plain torch, on any device. Each probe segment is
+    one closest-hit trace under the mask `lanes` with the per-lane tmax
+    `probe_len` (on the card: the kernel's mask + per-lane-tmax form)."""
     from .wavefront import fetch_attributes, trace_rays, texture_radiance
     N = hitpoint.shape[0]
     rho = objcol

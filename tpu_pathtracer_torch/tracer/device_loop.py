@@ -69,11 +69,12 @@ def _count_tables():
     """The launch counts a step's kernels add to: the traversal's
     (ops.traverse_packet.LAUNCHES, FORM_LAUNCHES), the shade kernel's
     (ops.shade.LAUNCHES), the surface fetches'
-    (ops.surface_fetch.LAUNCHES) and the pool gather's
-    (ops.permute.LAUNCHES)."""
-    from ..ops import permute, shade, surface_fetch, traverse_packet as tp
+    (ops.surface_fetch.LAUNCHES), the pool gather's (ops.permute.LAUNCHES)
+    and the BSSRDF probe loop's (ops.bssrdf.LAUNCHES)."""
+    from ..ops import bssrdf, permute, shade, surface_fetch
+    from ..ops import traverse_packet as tp
     return tp.LAUNCHES, tp.FORM_LAUNCHES, shade.LAUNCHES, \
-        surface_fetch.LAUNCHES, permute.LAUNCHES
+        surface_fetch.LAUNCHES, permute.LAUNCHES, bssrdf.LAUNCHES
 
 
 def launch_counts():

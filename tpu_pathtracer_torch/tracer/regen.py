@@ -88,8 +88,10 @@ Counters. A with_stats call of a scene with media also counts, in two
 int64 device scalars of its state summed over every wave at every drain
 width, the live lanes inside a medium at the medium step
 (`medium_lanes`) and the lanes that scattered there (`medium_scatters`);
-the integrator reads them once after the call into `last_counters`
-({} for a scene without media or a call without with_stats).
+one of a scene with BSSRDF counts the lanes that enter the probe loop
+(`bssrdf_lanes`) and those that leave it at an exit (`bssrdf_exits`). The
+integrator reads them once after the call into `last_counters` ({} for a
+scene with neither or a call without with_stats).
 """
 from __future__ import annotations
 
@@ -114,9 +116,11 @@ from .renderer import generate_camera_rays, lane_pixel_xy
 
 # the drain's narrower widths, P // d for each d (compact order only)
 DRAIN_DIVS = (4, 16)
-# the counters of a with_stats call on a scene with media, published in
-# RegenIntegrator.last_counters (see the module docstring)
+# the counters of a with_stats call on a scene with media and on one with
+# BSSRDF, published in RegenIntegrator.last_counters (see the module
+# docstring)
 COUNTERS = ("medium_lanes", "medium_scatters")
+BSSRDF_COUNTERS = ("bssrdf_lanes", "bssrdf_exits")
 
 
 def _check_settings(settings: RenderSettings):
@@ -160,7 +164,7 @@ class WaveConfig:
 def new_state(cfg: WaveConfig, device):
     """The tensors a wave reads and writes in place: the pool columns, the
     device scalars (next, alive, waves, rays, tot, frame0, lane0, and the
-    COUNTERS of a with_stats call on a scene with media), the status a wave
+    counters of a with_stats call, _counters), the status a wave
     ends with (int64 [done, alive, samples left]), the camera vector and
     the image slice `accum` [N,3]. Filled by reset()."""
     P, N = cfg.P, cfg.N
@@ -187,9 +191,13 @@ def new_state(cfg: WaveConfig, device):
 
 
 def _counters(cfg: WaveConfig):
-    """The names of the counters a call of cfg keeps: COUNTERS under
-    with_stats on a scene with media, else none."""
-    return COUNTERS if cfg.with_stats and cfg.settings.has_media else ()
+    """The names of the counters a call of cfg keeps: under with_stats,
+    COUNTERS on a scene with media and BSSRDF_COUNTERS on one with
+    BSSRDF; else none."""
+    if not cfg.with_stats:
+        return ()
+    return (COUNTERS if cfg.settings.has_media else ()) \
+        + (BSSRDF_COUNTERS if cfg.settings.has_bssrdf else ())
 
 
 def narrow(cfg: WaveConfig, st, w):
@@ -252,13 +260,14 @@ def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
     hit_slot, hit_t = trace_rays(
         scene, settings, o, d, RAY_MIN, RAY_MAX, anyhit=False,
         active=active, active_prefix=prefix)
+    counted = _counters(cfg)
     if settings.has_media:
         mark("medium")
-        if _counters(cfg):
+        if counted:
             st["medium_lanes"].add_((active & (mid >= 0)).sum())
         r, o, d, m, sampled_medium = medium_interaction(
             scene, r, o, d, m, hit_t, mid, active)
-        if _counters(cfg):
+        if counted:
             st["medium_scatters"].add_(sampled_medium.sum())
         lbn_a = torch.where(
             sampled_medium,
@@ -288,7 +297,8 @@ def _segment(cfg, scene, cam_vec, o, d, m, pdf_prev, r, lbn_a, bn_prev, mid,
     (r, o, d, m, pdf_new, lb, mid, contrib, ended, n_shadow) = shade_hits(
         scene, settings, r, o, d, m, pdf_prev, lbn_a, mid, surf, hit,
         tex_rgb, contrib, cam_vec[15], light, count_rays=cfg.with_stats,
-        mark=mark)
+        mark=mark, counters={k: st[k] for k in counted
+                             if k in BSSRDF_COUNTERS} or None)
     bn = torch.where(active, bn_prev + 1, bn_prev)
     finished = active & (miss | ended | (bn >= lb)
                          | (bn >= settings.bounce_max))
@@ -425,7 +435,7 @@ class RegenIntegrator:
     anew), the waves its last call ran at each width (`last_waves`,
     over-run waves included) and the counters its last call kept
     (`last_counters`, {name: host int}; {} but for a with_stats call on a
-    scene with media)."""
+    scene with media or BSSRDF)."""
 
     def __init__(self, settings, width, height, with_stats=False,
                  stop_after_waves=0):

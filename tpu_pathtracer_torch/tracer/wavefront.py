@@ -263,7 +263,7 @@ def distant_light(settings: RenderSettings, device):
 
 def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
                medium_id, surf, hit, tex, radiance, env_rotation, light,
-               count_rays=False, mark=no_mark):
+               count_rays=False, mark=no_mark, counters=None):
     """The surface half of a segment, shared by both integrators: material,
     emission, the BSDF draw, the BSSRDF probe loop, env NEE with MIS, the
     distant light, the bounce budget and medium tracking, on the lanes
@@ -278,7 +278,10 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
     n_shadow is the count of shadow rays traced (a device scalar) with
     count_rays, else 0. mark(stage) marks the start of each stage
     (ops/marks.py); the regen wave passes its with_stats call's marker,
-    every other caller none."""
+    every other caller none. counters: {name: 0-d int64 device tensor} to
+    which a scene with BSSRDF adds the lanes that enter the probe loop
+    (`bssrdf_lanes`) and those that leave it at an exit (`bssrdf_exits`),
+    or None."""
     hit_uv, smooth_n, mat_id, tri_n, hitpoint = hit
     mark("material")
     mat = gather_material(scene, mat_id)
@@ -301,14 +304,15 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
     if settings.has_bssrdf:
         mark("bssrdf")
         ss_lanes = surf & aux["ss_refract"]
-        (rng, bs_orig, bs_dir, bs_mul, bs_ok, bs_is_mul,
+        # the exit replaces the surface draw's origin, direction and
+        # throughput on the lanes that found one (use_bs, within ss_lanes)
+        (rng, new_orig, next_dir, mask_mul, use_bs, bs_is_mul,
          bs_normal) = bssrdf_scatter(
             scene, settings, rng, hitpoint, aux["ss_normal"], mat, mat_id,
-            objcol, ss_lanes)
-        use_bs = ss_lanes & bs_ok
-        new_orig = torch.where(use_bs[:, None], bs_orig, new_orig)
-        next_dir = torch.where(use_bs[:, None], bs_dir, next_dir)
-        mask_mul = torch.where(use_bs[:, None], bs_mul, mask_mul)
+            objcol, ss_lanes, shade_out=(new_orig, next_dir, mask_mul))
+        if counters is not None:
+            counters["bssrdf_lanes"].add_(ss_lanes.sum())
+            counters["bssrdf_exits"].add_(use_bs.sum())
     mask_prev = mask
     mask = torch.where(surf[:, None], mask * mask_mul, mask)
     orig = torch.where(surf[:, None], new_orig, orig)

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` is compiled on its own into a shared library with a
 plain C interface (`-shared -Xcompiler -fPIC`), loaded through ctypes. The
-library of a source goes into `csrc/_build/<name>-<hash>/`, keyed by a hash
-of the source and the flags, so an edited source builds anew and an
-unchanged one loads at once.
+sources share device code through the headers `csrc/*.cuh`. The library of
+a source goes into `csrc/_build/<name>-<hash>/`, keyed by a hash of the
+flags and the source with its headers (`source_text`), so an edited source
+or header builds anew and an unchanged one loads at once.
 Several sources build in parallel, one nvcc process each.
 
 Flags: `-gencode arch=compute_90a,code=sm_90a -O3 --fmad=false`. No fast
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -44,11 +46,33 @@ def find_nvcc():
                        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^#include "([^"]+)"\s*$', re.M)
+
+
+def source_text(name):
+    """The text of csrc/<name>.cu with each `#include "<header>"` of a
+    csrc header replaced by the header's text (recursively; a header
+    included before becomes empty, as its #pragma once makes it): what
+    nvcc compiles of this repository."""
+    seen = set()
+
+    def inline(fname):
+        with open(os.path.join(CSRC, fname)) as f:
+            text = f.read()
+
+        def sub(m):
+            if m.group(1) in seen:
+                return ""
+            seen.add(m.group(1))
+            return inline(m.group(1))
+        return _INCLUDE.sub(sub, text)
+    return inline(name + ".cu")
+
+
 def lib_path(name):
     """Where the library of csrc/<name>.cu is built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h.update(f.read())
+    h.update(source_text(name).encode())
     return os.path.join(BUILD_ROOT, "%s-%s" % (name, h.hexdigest()[:16]),
                         "lib%s.so" % name)
 

@@ -10,10 +10,14 @@ frame_ms = the window's time over the frames of the whole calls it ran;
 the window closes with a synchronize after the call that crossed
 --seconds. With --trace 1 one more call (with the program's counters on)
 runs under the profiler into the same accumulation, profiled anew (at
-most TRACE_TRIES calls) while its trace lacks some of the waves the
-program counted (_stages.marks_whole); the run's `traced`
-carries what that call counted (the waves, the rays, and every counter the
-program publishes, program.counters) beside its trace."""
+most TRACE_TRIES calls) while its trace lacks some of the waves or steps
+the program counted (_stages.marks_whole). Everything the traced call
+counted is read from the integrator that the configuration's settings
+name (`regen`, the default, or `bounce`; program.traced_waves and
+program.counters look it up and build nothing): the run's `traced`
+carries `integrator`, `waves` (regen waves at each width, or the bounce
+steps launched), the rays, and every counter the program publishes,
+beside its trace."""
 from __future__ import annotations
 
 import sys
@@ -80,19 +84,20 @@ def run(ctx):
 
     traced = {}
     if ctx.trace:
+        integrator = r.settings.integrator
         for _ in range(TRACE_TRIES):
             events, (accum, _, rays) = ctx.profile(
                 lambda: r.render_frames(accum, rc, frame, fpc,
                                         with_stats=True))
             frame += fpc
-            waves = program.regen_waves(r, True)
-            if _stages.marks_whole(events, waves):
+            waves = program.traced_waves(r)
+            if _stages.marks_whole(events, waves, integrator, fpc):
                 break
             print("cli_loop: the profiler lost records of a traced call; "
                   "profiling the next", file=sys.stderr)
-        traced = {"loop": "render", "events": events,
-                  "window": "portbench_window", "frames": fpc,
-                  "waves": waves, "rays": rays,
+        traced = {"loop": "render", "integrator": integrator,
+                  "events": events, "window": "portbench_window",
+                  "frames": fpc, "waves": waves, "rays": rays,
                   "stream_rows": program.stream_rows(r),
                   "counters": program.counters(r)}
     peak = torch.cuda.max_memory_allocated(ctx.device) \

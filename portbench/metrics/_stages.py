@@ -6,9 +6,20 @@ arithmetic they use is `_trace.py`'s); `_is_mark` takes every device event
 named `pt_stage_<stage>` as the mark of `<stage>`, so a stage the program
 adds needs only its reader (`stage_ms.<stage>.py`); the rest is the
 benchmark's own. The program's regen wave marks, in wave order: respawn,
-ext_trace, surface, material, shade, bssrdf (a scene with a subsurface
-material), sample_env, shadow_trace, permute, scatter, end. A trace of a
-program without the marks or spans gives None."""
+ext_trace, medium (a scene with media), surface, material, shade, bssrdf
+(a scene with a subsurface material), sample_env, shadow_trace, permute,
+scatter, end. A trace of a program without the marks or spans gives None.
+
+The bounce integrator's contract (tracer/wavefront.py), which marks_whole
+holds a bounce trace to: `frame_start` is marked `respawn`, once a frame;
+each launched `bounce_step`, the no-op steps after a frame's end among
+them, is marked `ext_trace`, then `medium` (a scene with media), then
+`surface`, then shade_hits' own marks (`material`, `shade`, `bssrdf`,
+`sample_env`, `shadow_trace`), then `end`; `frame_end` is marked
+`scatter`, once a frame. So each step's work falls to its stage, the
+frame's deferred environment fetch to `scatter`, and a "wave" of
+stage_device_ms (`wave_ms`, from a `respawn` mark to the next) is a
+frame."""
 from __future__ import annotations
 
 import collections
@@ -87,15 +98,21 @@ def render_stages(run):
     return got if got["marks"] else None
 
 
-def marks_whole(events, waves):
-    """False where the trace holds stage marks but not one `respawn` and
-    one `end` mark for each wave the program counted (`waves`, {width:
-    count}), or a stage marked a number of times that is no whole multiple
-    of the waves: the profiler lost device records (on the H100 runs of
-    some tens to some thousands of a traced call's records, in one call of
+def marks_whole(events, waves, integrator="regen", frames=0):
+    """False where the trace holds stage marks but not as many as the call
+    counted: the profiler lost device records (on the H100 runs of some
+    tens to some thousands of a traced call's records, in one call of
     three to one of five), so every device reading of that trace would
     read short. True for a trace without marks, which no second call can
-    mend."""
+    mend.
+
+    A regen call (`waves`, {width: count}) needs one `respawn` and one
+    `end` mark for each wave it counted, and every stage marked a whole
+    multiple of the waves. A bounce call (`integrator` "bounce", `waves`
+    {lanes: launched steps}, `frames` the call's frames) needs one `end`
+    mark for each launched step, one `respawn` and one `scatter` mark for
+    each frame, and every other stage marked a whole multiple of the
+    launched steps (the contract in this module's docstring)."""
     n = collections.Counter(e["name"] for e in events
                             if e.get("ph") == "X"
                             and e.get("cat") in DEVICE_CATS
@@ -103,6 +120,11 @@ def marks_whole(events, waves):
     if not n:
         return True
     want = sum(int(c) for c in (waves or {}).values())
+    if integrator == "bounce":
+        once = {MARK_PREFIX + s for s in ("respawn", "scatter")}
+        return want > 0 and frames > 0 and n[MARK_PREFIX + "end"] == want \
+            and all(n[m] == frames for m in once) \
+            and all(c % want == 0 for m, c in n.items() if m not in once)
     return want > 0 and n[MARK_PREFIX + "respawn"] == want \
         == n[MARK_PREFIX + "end"] and all(c % want == 0 for c in n.values())
 

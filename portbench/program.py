@@ -84,24 +84,43 @@ def viewer_session(renderer, icam, lo, batch, out_dir,
     return sess
 
 
-def regen_waves(renderer, with_stats):
-    """The waves at each width that the renderer's regen integrator ran in
-    its last call (RegenIntegrator.last_waves)."""
-    return dict(renderer.regen_integrator(with_stats).last_waves)
+def _last_traced(renderer):
+    """(key, integrator) of the renderer's last with_stats call, looked up
+    among the integrators it has built (its cache, most recently used last;
+    a key's first item names the integrator, `regen` or `bounce`, its
+    third is with_stats), so that nothing is built here; None where no
+    with_stats call ran."""
+    ran = [(key, fn) for key, fn
+           in getattr(renderer, "_integrators", {}).items() if key[2]]
+    return ran[-1] if ran else None
+
+
+def traced_waves(renderer):
+    """{lanes: count} of the renderer's last with_stats call: a regen
+    integrator's waves at each width (RegenIntegrator.last_waves); a bounce
+    integrator's launched steps ({N: BounceIntegrator.last_launched}, N the
+    lanes a step covers, W*H up to one lane chunk), the no-op steps
+    launched after a frame's end among them, since each replays every
+    kernel and stage mark of a step; {} where no with_stats call ran."""
+    got = _last_traced(renderer)
+    if got is None:
+        return {}
+    key, fn = got
+    if key[0] == "bounce":
+        n = min(renderer.width * renderer.height, renderer.lane_chunk)
+        return {n: int(fn.last_launched)}
+    return dict(fn.last_waves)
 
 
 def counters(renderer):
     """{name: number}: what the integrator of the renderer's last with_stats
-    call published in its `last_counters` mapping (device scalars read
-    back), looked up among the integrators the renderer has built (its
-    cache, most recently used last; a key's third item is with_stats), so
-    that nothing is built here; {} where no with_stats call ran or its
-    integrator publishes none."""
-    ran = [fn for key, fn in getattr(renderer, "_integrators", {}).items()
-           if key[2]]
-    got = getattr(ran[-1], "last_counters", None) if ran else None
+    call (_last_traced) published in its `last_counters` mapping (device
+    scalars read back); {} where no with_stats call ran or its integrator
+    publishes none."""
+    got = _last_traced(renderer)
+    pub = getattr(got[1], "last_counters", None) if got else None
     return {str(k): v.item() if hasattr(v, "item") else v
-            for k, v in (got or {}).items()}
+            for k, v in (pub or {}).items()}
 
 
 def stream_rows(renderer):

@@ -1,5 +1,6 @@
 """Helpers and fixtures of the benchmark's tests: the checkout on
-sys.path, the parsed BENCHMARK.json, toy-size overrides of a cell, and the
+sys.path, the parsed BENCHMARK.json, toy-size overrides of a cell, the
+renderers a run builds, and the
 skip of the tests marked `cuda` where there is no card (decided in the
 fixture, at run time)."""
 import json
@@ -26,6 +27,20 @@ def toy(bench, cell, **traffic):
     t.update(traffic)
     return {"config": {"width": 64, "height": 64, "scene": scene},
             "traffic": t}
+
+
+def keep_renderers(monkeypatch):
+    """The list into which every Renderer that program.build_renderer
+    builds from here on goes."""
+    from portbench import program
+    built, build = [], program.build_renderer
+
+    def keep(*a, **kw):
+        out = build(*a, **kw)
+        built.append(out[0])
+        return out
+    monkeypatch.setattr(program, "build_renderer", keep)
+    return built
 
 
 @pytest.fixture

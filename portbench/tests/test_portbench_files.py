@@ -5,7 +5,7 @@ import os
 import re
 import shutil
 
-from pb_helpers import ROOT, bench, toy  # noqa: F401  (bench: a fixture)
+from pb_helpers import ROOT, bench, keep_renderers, toy  # noqa: F401
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -113,38 +113,64 @@ def test_cell_added_as_files_only(bench, tmp_path):
     assert res["attempted"] >= 1
 
 
-def test_media_cell_added_as_files_only(bench, tmp_path):
-    """A participating-media cell: a configuration file (organic_sss's
-    scene with the blob in glass filled with the jade medium), a limits
-    file and in-memory BENCHMARK.json entries, no edit of any file of
-    portbench/; the harness takes it and its comparison holds on the
+def test_bounce_cell_added_as_files_only(bench, tmp_path, monkeypatch):
+    """A bounce-integrator cell: a configuration file (testobj_large's
+    scene with `settings: {"integrator": "bounce"}`), a limits file and
+    entries in a copy of BENCHMARK.json, no edit of any file of
+    portbench/; traced, the harness reads the bounce integrator's steps
+    and counters (a counter it publishes reaches a reader file beside the
+    cell), builds no regen integrator, and its comparison holds on the
     CPU."""
     from portbench.run import run_cell
+    from tpu_pathtracer_torch.tracer import wavefront
     for sub in ("configs", "traffic", "limits", "metrics"):
         shutil.copytree(os.path.join(PB, sub), tmp_path / "portbench" / sub)
-    with open(os.path.join(PB, "configs", "organic_sss.json")) as f:
+    with open(os.path.join(PB, "configs", "testobj_large.json")) as f:
         config = json.load(f)
-    config["name"] = "organic_media"
-    config["scene"]["materials"] = [
-        {"refltype": "MAT_DIFF", "useTexture": True},
-        {"refltype": "MAT_GLASS", "medium": "jade"}]
-    (tmp_path / "portbench" / "configs" / "organic_media.json").write_text(
+    config["name"] = "testobj_large_bounce"
+    config["settings"] = {"integrator": "bounce"}
+    pb = tmp_path / "portbench"
+    (pb / "configs" / "testobj_large_bounce.json").write_text(
         json.dumps(config))
-    (tmp_path / "portbench" / "limits" / "organic_media_1080p.json") \
-        .write_text(json.dumps({"gap_p50": 1e-3, "far_share": 0.1}))
-    bench["configs"].append({"name": "organic_media", "source": "a test",
-                             "file": "portbench/configs/organic_media.json",
-                             "reduced": [], "why": "a test configuration"})
-    bench["workloads"].append({"name": "organic_media_1080p",
-                               "config": "organic_media",
+    (pb / "limits" / "testobj_large_bounce_1080p.json").write_text(
+        json.dumps({"gap_p50": 1e-3, "far_share": 0.1}))
+    (pb / "metrics" / "probe_steps.py").write_text(
+        "def read(run):\n"
+        "    return run.get(\"counters\", {}).get(\"probe_steps\")\n")
+    cell = "testobj_large_bounce_1080p"
+    bench = json.loads(json.dumps(bench))
+    bench["configs"].append({
+        "name": "testobj_large_bounce", "source": "a test",
+        "file": "portbench/configs/testobj_large_bounce.json",
+        "reduced": [], "why": "a test configuration"})
+    bench["workloads"].append({"name": cell,
+                               "config": "testobj_large_bounce",
                                "traffic": "cli_32", "chips": 1,
                                "why": "a test cell"})
+    for m in bench["per_layer"]:
+        if m["name"] == "waves_per_frame":
+            m["workloads"].append(cell)
+    bench["per_layer"].append({
+        "name": "probe_steps", "unit": "steps", "better": "lower",
+        "source": "program_counter", "layer": "bounce loop",
+        "moves": "frame_ms", "workloads": [cell]})
+    for m in bench["end_to_end"]:
+        if m["name"] == "frame_ms":
+            m["workloads"].append(cell)
+    monkeypatch.setattr(wavefront.BounceIntegrator, "last_counters",
+                        {"probe_steps": 5}, raising=False)
+    built = keep_renderers(monkeypatch)
     scene = dict(config["scene"],
                  mesh_args={"n_lat": 8, "n_lon": 16, "ground_div": 4})
-    ov = {"config": {"width": 64, "height": 64, "scene": scene},
-          "traffic": {"frames_per_call": 2, "check_pixels": 32}}
-    res = run_cell(bench, "organic_media_1080p", 2 ** 31 + 11, 0.1, 0,
-                   "cpu", ov, root=str(tmp_path))
+    ov = {"config": {"width": 16, "height": 16, "scene": scene},
+          "traffic": {"frames_per_call": 1, "check_pixels": 8}}
+    res = run_cell(bench, cell, 2 ** 31 + 17, 0.01, 1, "cpu", ov,
+                   root=str(tmp_path))
     assert res["correct"], res["check"]
     assert set(res["check"]) == {"gap_p50", "far_share"}
-    assert res["attempted"] >= 2
+    (r,) = built
+    assert {k[0] for k in r._integrators} == {"bounce"}
+    (fn,) = [f for k, f in r._integrators.items() if k[2]]
+    m = res["metrics"]
+    assert m["waves_per_frame"]["value"] == fn.last_launched > 0
+    assert m["probe_steps"] == {"value": 5, "unit": "steps"}

@@ -102,19 +102,20 @@ class _Integrator:
 
 class _Renderer:
     """The renderer's cache of integrators, keyed as the port keys it
-    (kind, settings, with_stats, ...), most recently used last; building
-    one here is a fault."""
+    (kind, settings, with_stats, ...), most recently used last, each
+    integrator with the attributes `built` gives it (last_counters,
+    last_waves, last_launched); building one here is a fault."""
+    width, height, lane_chunk = 1920, 1080, 1 << 23
 
     def __init__(self, *built):
         import collections
         self._integrators = collections.OrderedDict()
-        for key, counters in built:
+        for key, attrs in built:
             fn = self._integrators[key] = _Integrator()
-            if counters is not None:
-                fn.last_counters = counters
+            fn.__dict__.update(attrs)
 
     def regen_integrator(self, *args, **kwargs):
-        raise AssertionError("program.counters built an integrator")
+        raise AssertionError("the lookup built an integrator")
 
     integrator = bounce_integrator = regen_integrator
 
@@ -123,10 +124,11 @@ def test_program_counters_are_flat():
     import torch
     from portbench import program
     assert program.counters(_Renderer()) == {}
-    assert program.counters(_Renderer((("regen", None, True), None))) == {}
+    assert program.counters(_Renderer((("regen", None, True), {}))) == {}
     got = program.counters(_Renderer((("regen", None, True), {
-        "medium.scatters": torch.tensor(7), "medium.paths": 3,
-        "medium.tr_mean": torch.tensor(0.5)})))
+        "last_counters": {"medium.scatters": torch.tensor(7),
+                          "medium.paths": 3,
+                          "medium.tr_mean": torch.tensor(0.5)}})))
     assert got == {"medium.scatters": 7, "medium.paths": 3,
                    "medium.tr_mean": 0.5}
     assert all(type(v) in (int, float) for v in got.values())
@@ -136,12 +138,37 @@ def test_program_counters_read_the_last_stats_call():
     """Of the integrators built, the one of the last with_stats call: not
     one without stats used after it, not an older one."""
     from portbench import program
-    r = _Renderer((("regen", None, True, 0), {"old": 1}),
-                  (("bounce", None, True), {"new": 2}),
-                  (("regen", None, False, 0), {"plain": 3}))
+    r = _Renderer((("regen", None, True, 0), {"last_counters": {"old": 1}}),
+                  (("bounce", None, True), {"last_counters": {"new": 2}}),
+                  (("regen", None, False, 0),
+                   {"last_counters": {"plain": 3}}))
     assert program.counters(r) == {"new": 2}
     assert program.counters(_Renderer(
-        (("regen", None, False, 0), {"plain": 3}))) == {}
+        (("regen", None, False, 0), {"last_counters": {"plain": 3}}))) == {}
+
+
+def test_traced_waves_read_the_integrator_the_call_ran():
+    """The waves of the last with_stats call, from the integrator it ran
+    and nothing built: a regen integrator's last_waves; a bounce
+    integrator's launched steps as {lanes of a step: last_launched}, the
+    lanes W*H up to one lane chunk."""
+    from portbench import program
+    assert program.traced_waves(_Renderer()) == {}
+    regen = (("regen", None, True, 0), {"last_waves": {1 << 20: 6,
+                                                       1 << 18: 1}})
+    bounce = (("bounce", None, True), {"last_launched": 37,
+                                       "last_waves": {9: 9}})
+    plain = (("regen", None, False, 0), {"last_waves": {1: 1}})
+    assert program.traced_waves(_Renderer(regen, plain)) == {
+        1 << 20: 6, 1 << 18: 1}
+    assert program.traced_waves(_Renderer(regen, bounce, plain)) == {
+        1920 * 1080: 37}
+    assert program.traced_waves(_Renderer(bounce, regen)) == {
+        1 << 20: 6, 1 << 18: 1}
+    assert program.traced_waves(_Renderer(plain)) == {}
+    chunked = _Renderer(bounce)
+    chunked.lane_chunk = 1 << 20
+    assert program.traced_waves(chunked) == {1 << 20: 37}
 
 
 def test_traced_render_carries_the_counters(bench, monkeypatch, tmp_path):
@@ -187,7 +214,8 @@ def test_traced_render_profiles_anew_while_records_are_lost(
     from portbench.run import run_cell
     seen = []
 
-    def whole(events, waves):
+    def whole(events, waves, integrator, frames):
+        assert (integrator, frames) == ("regen", 1)
         seen.append(sum(waves.values()))
         return len(seen) == 3
     monkeypatch.setattr(_stages, "marks_whole", whole)
@@ -198,7 +226,7 @@ def test_traced_render_profiles_anew_while_records_are_lost(
     assert res["correct"], res["check"]
 
     seen.clear()
-    monkeypatch.setattr(_stages, "marks_whole", lambda e, w: seen.append(1))
+    monkeypatch.setattr(_stages, "marks_whole", lambda *a: seen.append(1))
     res = run_cell(bench, "testobj_large_1080p", 9, 0.01, 1, "cpu", ov)
     assert len(seen) == cli_loop.TRACE_TRIES
     assert res["correct"], res["check"]

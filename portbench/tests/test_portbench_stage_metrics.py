@@ -158,6 +158,85 @@ def test_marks_whole_tells_a_trace_that_lost_records():
     assert _stages.marks_whole(bare, {1024: 2, 256: 1})
 
 
+BOUNCE_STEP = ["ext_trace", "surface", "material", "shade", "sample_env",
+               "shadow_trace"]
+
+
+def bounce_trace(frames=2, steps=3, medium=False):
+    """A bounce call's marks as the contract in _stages.py sets them: a
+    frame's `respawn` (frame_start, 30 us), `steps` launched bounce steps
+    (each stage a 10 us kernel, `medium` after `ext_trace` where asked,
+    then `end` and the status copy), the frame's `scatter` (frame_end, the
+    late environment fetch, 40 us)."""
+    step = list(BOUNCE_STEP)
+    if medium:
+        step.insert(1, "medium")
+    ev, t = [_ev(W, "user_annotation", 0, 10 ** 6),
+             _ev("cudaGraphLaunch", "cuda_runtime", 1, 5)], 10
+    for _ in range(frames):
+        ev += [_ev("pt_stage_respawn", "kernel", t, 1),
+               _ev("elementwise_kernel", "kernel", t + 2, 30)]
+        t += 40
+        for _ in range(steps):
+            w, t = _wave(t, step, 10)
+            ev += w
+        ev += [_ev("pt_stage_scatter", "kernel", t, 1),
+               _ev("env_miss_kernel", "kernel", t + 2, 40)]
+        t += 50
+    return ev
+
+
+def _drop(ev, name, k=1):
+    """ev without the k-th event named name."""
+    at = [i for i, e in enumerate(ev) if e["name"] == name][k]
+    return ev[:at] + ev[at + 1:]
+
+
+def test_bounce_trace_by_the_contract_is_whole():
+    from portbench.metrics import _stages
+    for medium in (False, True):
+        ev = bounce_trace(medium=medium)
+        assert _stages.marks_whole(ev, {4096: 6}, "bounce", 2)
+        # the regen rule does not take it: one respawn a frame, not a step
+        assert not _stages.marks_whole(ev, {4096: 6})
+    bare = [e for e in bounce_trace() if not e["name"].startswith(
+        "pt_stage_")]
+    assert _stages.marks_whole(bare, {4096: 6}, "bounce", 2)
+
+
+@pytest.mark.parametrize("case", [
+    "lost end", "lost respawn", "lost scatter", "lost shade", "lost medium",
+    "more steps counted", "fewer steps counted", "more frames counted",
+    "no steps counted"])
+def test_bounce_trace_that_lost_marks_is_not_whole(case):
+    from portbench.metrics import _stages
+    ev, steps, frames = bounce_trace(medium=True), 6, 2
+    if case.startswith("lost "):
+        ev = _drop(ev, "pt_stage_" + case[len("lost "):])
+    steps += {"more steps counted": 1, "fewer steps counted": -1,
+              "no steps counted": -6}.get(case, 0)
+    frames += case == "more frames counted"
+    assert not _stages.marks_whole(ev, {4096: steps}, "bounce", frames)
+
+
+def test_stage_readers_on_a_bounce_trace():
+    """Each bounce step's work falls to its stage, the frame's late
+    environment fetch to `scatter`, and a wave of stage_device_ms is a
+    frame."""
+    from portbench.metrics import _stages
+    run = {"loop": "render", "integrator": "bounce", "frames": 2,
+           "events": bounce_trace(), "window": W, "waves": {4096: 6}}
+    for s in BOUNCE_STEP:
+        assert _read("stage_ms." + s, run) == pytest.approx(0.030), s
+    assert _read("stage_ms.respawn", run) == pytest.approx(0.030)
+    assert _read("stage_ms.scatter", run) == pytest.approx(0.040)
+    assert _read("stage_ms.permute", run) is None
+    assert _read("waves_per_frame", run) == pytest.approx(3.0)
+    got = _stages.stage_device_ms(run["events"], W)
+    assert got["wave_ms"] == pytest.approx([0.25, 0.25])
+    assert got["none_ms"] == pytest.approx(0.012)       # the status copies
+
+
 def _drag_trace(steps=2):
     ev = [_ev(W, "user_annotation", 0, 10 ** 7)]
     t = 100

@@ -970,6 +970,68 @@ def test_replayed_stats_call_carries_the_stage_marks(device, case,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "bssrdf", "media"])
+def test_replayed_bounce_call_carries_the_stage_marks(device, case,
+                                                      tmp_path):
+    """A replayed with_stats bounce call's trace holds the pt_stage_*
+    kernels by the contract of portbench/metrics/_stages.py: frame_start's
+    `respawn` and frame_end's `scatter` once a frame, each launched step
+    (the no-op steps after a frame's end among them) its stages from
+    `ext_trace` to `end`, and marks_whole takes it; the replayed call
+    without with_stats holds none. Its counters equal those of the same
+    call run eagerly on the card, and its `bounce_live_lanes` that of the
+    same frames run eagerly on the CPU to 1e-3: the CPU's transcendentals
+    (MKL, SLEEF) differ from the card's by ulps, which can end a path a
+    bounce sooner or later (2 of 18,973 lane-steps in the default case on
+    an H100)."""
+    import dataclasses
+    from portbench.metrics import _stages
+    from tpu_pathtracer_torch.ops.marks import MARK_PREFIX as prefix
+    from tpu_pathtracer_torch.tracer import device_loop
+    frames = 2
+    counted = {}
+    for dev in (torch.device("cpu"), device):
+        r, rc = _graph_case(case, dev)
+        r.settings = dataclasses.replace(r.settings, integrator="bounce")
+        r.render_frames(r.zeros_accum(), rc, 1, frames, with_stats=True)
+        counted[dev.type] = dict(r.bounce_integrator(True).last_counters)
+    with device_loop.no_graphs():
+        r.render_frames(r.zeros_accum(), rc, 1, frames, with_stats=True)
+    eager = dict(r.bounce_integrator(True).last_counters)
+    r.render_frames(r.zeros_accum(), rc, 1, frames)        # captures
+    traced = _kernel_events(lambda: r.render_frames(
+        r.zeros_accum(), rc, 1, frames, with_stats=True), tmp_path)
+    fn = r.bounce_integrator(True)
+    launched, got = fn.last_launched, dict(fn.last_counters)
+    plain = _kernel_events(lambda: r.render_frames(r.zeros_accum(), rc, 1,
+                                                   frames), tmp_path)
+    marks = [e["name"][len(prefix):] for e in traced
+             if e["name"].startswith(prefix)]
+    step = ["ext_trace"] + (["medium"] if case == "media" else []) \
+        + ["surface", "material", "shade"] \
+        + (["bssrdf"] if case == "bssrdf" else []) \
+        + ["sample_env", "shadow_trace", "end"]
+    per_frame = []
+    for m in marks:
+        if m == "respawn":
+            per_frame.append([])
+        per_frame[-1].append(m)
+    assert len(per_frame) == frames
+    for f in per_frame:
+        body = f[1:-1]
+        assert f[-1] == "scatter" and body
+        assert body == step * (len(body) // len(step))
+    assert marks.count("end") == launched > frames
+    assert _stages.marks_whole(traced, {r.width * r.height: launched},
+                               "bounce", frames)
+    assert not [e for e in plain if e["name"].startswith(prefix)]
+    assert any("traverse_kernel" in e["name"] for e in plain)
+    assert got == eager == counted["cuda"] and got["bounce_live_lanes"] > 0
+    assert got["bounce_live_lanes"] == pytest.approx(
+        counted["cpu"]["bounce_live_lanes"], rel=1e-3)
+
+
+@pytest.mark.cuda
 def test_replayed_medium_counters_equal_the_eager_call(device):
     """The medium counters of a replayed with_stats call (graphs at every
     drain width) equal those of the same call run eagerly, and the two

@@ -1,12 +1,14 @@
 """The port's own spans (utils/profiling.py) and stage marks
 (ops/marks.py): the stage marks of a regen with_stats call in wave order,
 one `respawn` a wave counted in RegenIntegrator.last_waves, `medium` after
-`ext_trace` in a scene with media only, none without with_stats and none
-in the bounce integrator, the image unchanged by them; the medium
-counters of RegenIntegrator.last_counters against a count of the same
-call stepped by hand; the viewer step's host spans; stage_device_ms
-on a synthetic trace; and the CLI's rate line, which synchronizes once a
-report. On the CPU a mark is a zero-length record_function named as the
+`ext_trace` in a scene with media only, none without with_stats, the
+image unchanged by them; the medium counters of
+RegenIntegrator.last_counters against a count of the same call stepped
+by hand; the bounce integrator's marks by portbench's contract (a frame's
+`respawn` and `scatter`, each launched step's stages up to `end`) and its
+live-lane counter against a count by hand; the viewer step's host spans;
+stage_device_ms on a synthetic trace; and the CLI's rate line, which
+synchronizes once a report. On the CPU a mark is a zero-length record_function named as the
 kernel that marks the stage on the card (the card's marks are in
 tests/test_torch_cuda.py)."""
 import dataclasses
@@ -24,7 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 from tpu_pathtracer_torch.scene import demo
 from tpu_pathtracer_torch.ops import marks as stage_marks
 from tpu_pathtracer_torch.tools import interactive as viewer
-from tpu_pathtracer_torch.tracer import regen
+from tpu_pathtracer_torch.tracer import regen, wavefront
 from tpu_pathtracer_torch.tracer.renderer import (
     Renderer, camera_vector, lane_tables)
 from tpu_pathtracer_torch.utils import cuda_build, profiling, timing
@@ -142,20 +144,133 @@ def test_with_stats_call_marks_every_stage_of_every_wave(variant, settings,
     assert all(w == want for w in per_wave), per_wave[0]
 
 
-def test_bounce_with_stats_carries_no_mark(tmp_path):
-    """The marks are the regen wave's: the bounce step shares shade_hits
-    but passes it no marker, so its with_stats call marks nothing."""
-    r = _renderer()
+BOUNCE_FRAMES = 2
+
+
+def _bounce_step_marks(variant):
+    """The marks of one bounce step by the contract of
+    portbench/metrics/_stages.py."""
+    return (["ext_trace"] + (["medium"] if variant == "media" else [])
+            + ["surface", "material", "shade"]
+            + (["bssrdf"] if variant == "subsurface" else [])
+            + ["sample_env", "shadow_trace", "end"])
+
+
+@functools.lru_cache(maxsize=None)
+def _profiled_bounce(variant):
+    """{True: (the with_stats bounce call's (accum, bounces, rays), its
+    marks' trace events, the steps it launched, its counters), False: (the
+    same call without with_stats, (accum, bounces), the stages it passed
+    to ops/marks.py: stage_mark, its counters)} of a call of BOUNCE_FRAMES
+    frames; the with_stats call under the profiler."""
+    r = _renderer(variant)
     base = r.settings
     r.settings = dataclasses.replace(base, integrator="bounce")
+    out = {}
     try:
-        (acc, bounces, rays), events = _profiled(
-            lambda: r.render_frames(r.zeros_accum(), _camera(), 1, 1,
-                                    with_stats=True), tmp_path)
-        launched = r.bounce_integrator(True).last_launched
+        with tempfile.TemporaryDirectory() as tmp:
+            res, events = _profiled(
+                lambda: r.render_frames(r.zeros_accum(), _camera(), 1,
+                                        BOUNCE_FRAMES, with_stats=True),
+                pathlib.Path(tmp))
+        fn = r.bounce_integrator(True)
+        out[True] = (res, [e for e in events if e["name"].startswith(
+            stage_marks.MARK_PREFIX)], fn.last_launched,
+            dict(fn.last_counters))
+        fn = r.bounce_integrator(False)
+        marked, plain_mark = [], stage_marks.stage_mark
+        stage_marks.stage_mark = lambda stage, device: marked.append(stage)
+        try:
+            res = fn(r.scene, camera_vector(_camera(), "cpu"), 1, 0,
+                     r.zeros_accum(), BOUNCE_FRAMES)
+        finally:
+            stage_marks.stage_mark = plain_mark
+        out[False] = (res, marked, fn.last_launched, dict(fn.last_counters))
     finally:
         r.settings = base
-    assert _marks(events) == [] and launched >= bounces > 0
+    return out
+
+
+def _hand_bounce_counts(variant):
+    """(accum, the live-lane count) of the bounce call of _profiled_bounce
+    without with_stats, stepped eagerly by hand (BounceIntegrator.start,
+    frame_start, bounce_step, frame_end): st["active"].sum() before each
+    step that runs, until the step's status reads done."""
+    r = _renderer(variant)
+    settings = dataclasses.replace(r.settings, integrator="bounce")
+    fn = wavefront.make_integrator(settings)
+    cfg, st = fn.start(r.scene, camera_vector(_camera(), "cpu"), 1, 0,
+                       r.zeros_accum(), BOUNCE_FRAMES)
+    live = 0
+    for _ in range(BOUNCE_FRAMES):
+        wavefront.frame_start(cfg, r.scene, st)
+        while True:
+            live += int(st["active"].sum())
+            wavefront.bounce_step(cfg, r.scene, st)
+            if bool(st["status"][0]):
+                break
+        wavefront.frame_end(cfg, r.scene, st)
+    return st["accum"], live
+
+
+@pytest.mark.parametrize("variant", ["default", "subsurface", "media"])
+def test_bounce_with_stats_marks_every_step(variant):
+    """A with_stats bounce call marks frame_start `respawn` and frame_end
+    `scatter` once a frame, and each launched step (the no-op steps after
+    a frame's end among them) the contract's stages from `ext_trace` to
+    `end`; portbench's marks_whole takes the trace (the CPU's marks given
+    the card's device category). The marks leave the image and the bounce
+    count as the same call without with_stats gives them, and that call
+    marks nothing."""
+    from portbench.metrics import _stages
+    got = _profiled_bounce(variant)
+    (acc, bounces, rays), events, launched, _ = got[True]
+    (plain, plain_bounces), plain_marks, _, _ = got[False]
+    marks = _marks(events)
+    step = _bounce_step_marks(variant)
+    frames = []
+    for m in marks:
+        if m == "respawn":
+            frames.append([])
+        frames[-1].append(m)
+    assert len(frames) == BOUNCE_FRAMES
+    for f in frames:
+        assert f[-1] == "scatter"
+        body = f[1:-1]
+        assert body == step * (len(body) // len(step)) and body
+    assert marks.count("end") == launched >= bounces > 0
+    assert marks.count("scatter") == marks.count("respawn") == BOUNCE_FRAMES
+    on_card = [dict(e, cat="kernel") for e in events]
+    assert _stages.marks_whole(on_card, {W * W: launched}, "bounce",
+                               BOUNCE_FRAMES)
+    # one mark short: the trace is not whole
+    assert not _stages.marks_whole(on_card[:-2] + on_card[-1:],
+                                   {W * W: launched}, "bounce",
+                                   BOUNCE_FRAMES)
+    assert torch.equal(acc, plain) and bounces == int(plain_bounces)
+    assert plain_marks == []
+
+
+@pytest.mark.parametrize("variant", ["default", "subsurface", "media"])
+def test_bounce_counters_equal_a_count_by_hand(variant):
+    """A with_stats bounce call publishes in last_counters the lanes live
+    at the start of each step (`bounce_live_lanes`): the sum of the active
+    lanes before each step of the same call stepped by hand; on the
+    subsurface scene also the probe loop's `bssrdf_lanes` and
+    `bssrdf_exits`, as a regen call does. A call without with_stats
+    publishes {}."""
+    got = _profiled_bounce(variant)
+    acc, _, _, counters = got[True]
+    hand_acc, live = _hand_bounce_counts(variant)
+    want = {"bounce_live_lanes"} | (set(wavefront.BSSRDF_COUNTERS)
+                                    if variant == "subsurface" else set())
+    assert set(counters) == want
+    assert all(type(v) is int for v in counters.values())
+    assert counters["bounce_live_lanes"] == live > 0
+    assert torch.equal(acc[0], hand_acc)
+    if variant == "subsurface":
+        assert 0 < counters["bssrdf_exits"] <= counters["bssrdf_lanes"]
+    assert got[False][3] == {}
 
 
 def test_call_without_stats_marks_nothing():

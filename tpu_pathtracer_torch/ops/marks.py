@@ -1,16 +1,21 @@
 """The stage marks of an integrator's instrumented (`with_stats`) call: the
-start of each stage of a regen wave, as the program's own trace events.
+start of each stage of a regen wave, or of a bounce frame's steps, as the
+program's own trace events.
 
 On a CUDA device a mark launches the empty kernel `pt_stage_<stage>`
 (csrc/marks.cu) on the current stream, so a capture records it as a node
-of the wave's graph, in stream order between the stage's kernels, and a
+of the step's graph, in stream order between the stage's kernels, and a
 replayed call's trace names the stage its device events belong to. On the
 CPU a mark is a zero-length record_function `pt_stage_<stage>` while
 torch.profiler records, and nothing otherwise. The integrator owns the
-decision to mark (tracer/regen.py passes its marker to
-wavefront.shade_hits); a call without with_stats gets the marker that
-does nothing, so its graphs carry no mark. utils/profiling.py:
-stage_device_ms splits a trace's device time by the marks.
+decision to mark (tracer/regen.py: regen_wave and tracer/wavefront.py:
+frame_start, bounce_step, frame_end mark their stages and pass their
+marker to wavefront.shade_hits); a call without with_stats gets the
+marker that does nothing, so its graphs carry no mark. The bounce steps
+use the regen wave's stage names: frame_start is marked `respawn`, each
+bounce_step runs from `ext_trace` to `end`, frame_end is marked
+`scatter`. utils/profiling.py: stage_device_ms splits a trace's device
+time by the marks.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch
 # the stages of a regen wave in wave order, each running from its mark to
 # the next; `medium` (a scene with media) and `bssrdf` (a scene with a
 # subsurface material) are marked only where the scene has them; `end`
-# closes the wave (tracer/regen.py: regen_wave)
+# closes the wave (tracer/regen.py: regen_wave) or a bounce step
+# (tracer/wavefront.py: bounce_step, which marks no `permute`)
 STAGES = ("respawn", "ext_trace", "medium", "surface", "material", "shade",
           "bssrdf", "sample_env", "shadow_trace", "permute", "scatter", "end")
 MARK_PREFIX = "pt_stage_"

@@ -12,11 +12,12 @@ over the profiled window, which the host paces.
         --frames 1 5 [--demo subsurface] [--integrator bounce] \\
         [--set pool_lanes=1<<19,scatter_mode='wave'] [--stages]
 
---stages then prints each regen stage's device ms a frame: one with_stats
-call of HI frames under torch.profiler, its device time split by the
-call's stage marks (ops/marks.py; utils/profiling.py: stage_device_ms).
-Only a CUDA card's marks carry device time, so --stages refuses any other
-device, and the bounce integrator, which marks nothing.
+--stages then prints each stage's device ms a frame: one with_stats call
+of HI frames under torch.profiler, its device time split by the call's
+stage marks (ops/marks.py; utils/profiling.py: stage_device_ms), a regen
+call's by wave, a bounce call's by frame (each frame one `respawn` mark,
+so the report's "waves" are its frames). Only a CUDA card's marks carry
+device time, so --stages refuses any other device.
 
 The device is --device (default cuda). --device cpu runs the same control
 flow with the CPU activity only and prints "host ops (cpu)", the host's
@@ -212,9 +213,6 @@ def main(argv=None):
     W, H = args.w or args.wh, args.h or args.wh
     r, rc = build_renderer(args.demo, W, H, device, args.integrator,
                            settings_overrides(args.set))
-    if args.stages and r.settings.integrator != "regen":
-        raise SystemExit("profile_frame --stages: the %s integrator marks "
-                         "no stage" % r.settings.integrator)
     print("%s %dx%d, %s integrator, frames %d %d, device %s"
           % (args.demo, W, H, r.settings.integrator, args.frames[0],
              args.frames[1], args.device), flush=True)

@@ -108,19 +108,18 @@ from ..ops.permute import pool_gather
 from . import device_loop
 from .medium import medium_interaction
 from .wavefront import (
-    RenderSettings, trace_rays, fetch_attributes, env_miss_weighted,
-    env_tex_merged, shade_hits, distant_light,
+    BSSRDF_COUNTERS, RenderSettings, trace_rays, fetch_attributes,
+    env_miss_weighted, env_tex_merged, shade_hits, distant_light,
 )
 from .renderer import generate_camera_rays, lane_pixel_xy
 
 
 # the drain's narrower widths, P // d for each d (compact order only)
 DRAIN_DIVS = (4, 16)
-# the counters of a with_stats call on a scene with media and on one with
-# BSSRDF, published in RegenIntegrator.last_counters (see the module
-# docstring)
+# the counters of a with_stats call on a scene with media, published with
+# shade_hits' BSSRDF_COUNTERS in RegenIntegrator.last_counters (see the
+# module docstring)
 COUNTERS = ("medium_lanes", "medium_scatters")
-BSSRDF_COUNTERS = ("bssrdf_lanes", "bssrdf_exits")
 
 
 def _check_settings(settings: RenderSettings):

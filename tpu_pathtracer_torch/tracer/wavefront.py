@@ -32,7 +32,7 @@ from ..ops.surface_fetch import (
     env_tex_merged_cuda, texture_radiance_plain, texture_radiance_cuda,
     mis_env_weight,
 )
-from ..ops.marks import no_mark
+from ..ops.marks import no_mark, stage_marker
 from . import device_loop
 from .envsample import power_heuristic, sample_env
 from .traverse import intersect_scene
@@ -261,6 +261,11 @@ def distant_light(settings: RenderSettings, device):
             torch.tensor(settings.distant_light_L, **f32))
 
 
+# the counters shade_hits adds to on a scene with BSSRDF: the lanes that
+# enter the probe loop and those that leave it at an exit
+BSSRDF_COUNTERS = ("bssrdf_lanes", "bssrdf_exits")
+
+
 def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
                medium_id, surf, hit, tex, radiance, env_rotation, light,
                count_rays=False, mark=no_mark, counters=None):
@@ -277,7 +282,7 @@ def shade_hits(scene, settings, rng, orig, raydir, mask, bsdf_pdf, lbn,
     ended marks the surface lanes whose path stops here (an emitter), and
     n_shadow is the count of shadow rays traced (a device scalar) with
     count_rays, else 0. mark(stage) marks the start of each stage
-    (ops/marks.py); the regen wave passes its with_stats call's marker,
+    (ops/marks.py); both integrators pass their with_stats call's marker,
     every other caller none. counters: {name: 0-d int64 device tensor} to
     which a scene with BSSRDF adds the lanes that enter the probe loop
     (`bssrdf_lanes`) and those that leave it at an exit (`bssrdf_exits`),
@@ -406,16 +411,33 @@ class BounceConfig:
     N: int
 
 
+# the counter of a with_stats bounce call: the lanes live at the start of
+# each bounce step, summed over its steps; published with shade_hits'
+# BSSRDF_COUNTERS in BounceIntegrator.last_counters
+BOUNCE_COUNTERS = ("bounce_live_lanes",)
+
+
+def _bounce_counters(cfg: BounceConfig):
+    """The names of the counters a call of cfg keeps: under with_stats,
+    BOUNCE_COUNTERS, and BSSRDF_COUNTERS on a scene with BSSRDF; else
+    none."""
+    if not cfg.with_stats:
+        return ()
+    return BOUNCE_COUNTERS \
+        + (BSSRDF_COUNTERS if cfg.settings.has_bssrdf else ())
+
+
 def new_bounce_state(cfg: BounceConfig, device):
     """The tensors the bounce steps read and write in place: the lane
     columns of one frame's paths (rng, orig, dir, mask, the radiance `rad`
     summed so far, active, lbn, medium_id, the deferred env miss's
     miss_dir / miss_mask / miss_bpdf, bsdf_pdf), the device scalars
     (bounce: the index within the frame; bounces: the bounces run; rays;
-    frame0, lane0, frame: the frames started; frames_left), the status a
-    bounce ends with (int64 [done, active lanes, frames left]), the camera
-    vector and the image slice `accum` [N,3]. Filled by reset_bounce()
-    and frame_start()."""
+    frame0, lane0, frame: the frames started; frames_left; the counters of
+    a with_stats call, _bounce_counters), the status a bounce ends with
+    (int64 [done, active lanes, frames left]), the camera vector and the
+    image slice `accum` [N,3]. Filled by reset_bounce() and
+    frame_start()."""
     N = cfg.N
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -433,7 +455,7 @@ def new_bounce_state(cfg: BounceConfig, device):
               accum=torch.zeros((N, 3), **f32),
               light=distant_light(cfg.settings, device))
     for k in ("bounce", "bounces", "frame0", "lane0", "frame",
-              "frames_left"):
+              "frames_left") + _bounce_counters(cfg):
         st[k] = torch.zeros((), **i64)
     return st
 
@@ -442,7 +464,7 @@ def reset_bounce(cfg: BounceConfig, st, cam_vec, frame0, lane0, accum,
                  n_frames):
     """Start a call on state st: the counts at 0, the call's inputs copied
     in. Device work only: fills and device copies."""
-    for k in ("bounces", "rays", "frame", "status"):
+    for k in ("bounces", "rays", "frame", "status") + _bounce_counters(cfg):
         st[k].zero_()
     st["frame0"].fill_(int(frame0))
     st["lane0"].fill_(int(lane0))
@@ -455,8 +477,10 @@ def frame_start(cfg: BounceConfig, scene, st):
     """A frame's camera rays on every lane (RNG seeded by wang_hash(frame0
     + frame) and the global lane, lane -> pixel through the padded
     block-swizzle tables) and every path column reset: one frame of the
-    JAX Renderer's fori_loop body before its integrator."""
+    JAX Renderer's fori_loop body before its integrator. Marked
+    `respawn` under with_stats."""
     from .renderer import generate_camera_rays
+    stage_marker(cfg.with_stats, st["lane"].device)("respawn")
     s = cfg.settings
     lane_ids = st["lane0"] + st["lane"]
     rng = RaySampler.init(wang_hash(st["frame0"] + st["frame"]), lane_ids)
@@ -490,23 +514,37 @@ def bounce_step(cfg: BounceConfig, scene, st):
     counts: every write is masked by the (empty) active set; only the RNG
     of the lanes moves, and it is seeded anew at the next frame_start.
     Ends by writing the status [done, active lanes, frames left], done
-    when no lane is active or the frame has run bounce_max bounces."""
+    when no lane is active or the frame has run bounce_max bounces.
+
+    Under with_stats a step, the no-op ones included, marks its stages
+    (ops/marks.py) in the order of portbench/metrics/_stages.py's bounce
+    contract: ext_trace, medium (has_media only), surface (the deferred
+    miss, the attribute fetch), shade_hits' own, and end after the status;
+    and it adds the lanes live at its start to `bounce_live_lanes`, the
+    probe loop's lanes and exits to shade_hits' BSSRDF_COUNTERS."""
     s = cfg.settings
+    mark = stage_marker(cfg.with_stats, st["lane"].device)
+    counted = _bounce_counters(cfg)
+    mark("ext_trace")
     go = st["active"].any() & (st["bounce"] < s.bounce_max)
     active = st["active"] & go
     if cfg.with_stats:
-        st["rays"].add_(active.sum())
+        n_live = active.sum()
+        st["rays"].add_(n_live)
+        st["bounce_live_lanes"].add_(n_live)
     rng, orig, raydir, mask, lbn = (st["rng"], st["orig"], st["dir"],
                                     st["mask"], st["lbn"])
     hit_slot, hit_t = trace_rays(scene, s, orig, raydir, RAY_MIN, RAY_MAX,
                                  anyhit=False, active=active)
     surf = active
     if s.has_media:
+        mark("medium")
         rng, orig, raydir, mask, sampled_medium = medium_interaction(
             scene, rng, orig, raydir, mask, hit_t, st["medium_id"], active)
         lbn = torch.where(sampled_medium,
                           torch.clamp_max(lbn + 1, s.bounce_max), lbn)
         surf = active & ~sampled_medium
+    mark("surface")
     # the environment miss, deferred: record the direction, the throughput
     # and the pdf of the last diffuse draw
     miss = surf & (hit_t > 1e10)
@@ -522,7 +560,9 @@ def bounce_step(cfg: BounceConfig, scene, st):
      n_shadow) = shade_hits(
         scene, s, rng, orig, raydir, mask, st["bsdf_pdf"], lbn,
         st["medium_id"], surf, hit, None, st["rad"], st["cam_vec"][15],
-        st["light"], count_rays=cfg.with_stats)
+        st["light"], count_rays=cfg.with_stats, mark=mark,
+        counters={k: st[k] for k in counted
+                  if k in BSSRDF_COUNTERS} or None)
     if cfg.with_stats:
         st["rays"].add_(n_shadow)
     bounce = st["bounce"] + go.to(torch.int64)
@@ -536,12 +576,14 @@ def bounce_step(cfg: BounceConfig, scene, st):
     more = live.any() & (bounce < s.bounce_max)
     torch.stack([(~more).to(torch.int64), live.sum(), st["frames_left"]],
                 out=st["status"])
+    mark("end")
 
 
 def frame_end(cfg: BounceConfig, scene, st):
     """The deferred environment fetch, once for the direction and
     throughput each lane left the scene with, and the frame's radiance
-    added to the image slice."""
+    added to the image slice. Marked `scatter` under with_stats."""
+    stage_marker(cfg.with_stats, st["lane"].device)("scatter")
     env = env_miss_weighted(scene, cfg.settings, st["miss_dir"],
                             st["miss_bpdf"], st["cam_vec"][15])
     st["accum"].add_(st["rad"] + st["miss_mask"] * env)
@@ -562,13 +604,26 @@ class BounceIntegrator:
     status device_loop.LAG bounces old that reads done; the LAG - 1
     bounces launched after such a frame's end are no-ops (bounce_step).
     `last_launched` is the bounces the last call launched; the bounces it
-    ran are its count, so the over-run is the difference."""
+    ran are its count, so the over-run is the difference.
+
+    A with_stats call marks its steps' stages (frame_start `respawn`,
+    each launched bounce_step its stages up to `end`, frame_end
+    `scatter`), captured into its own graphs, and publishes its counters
+    in `last_counters`; a call without with_stats does neither."""
 
     def __init__(self, settings, with_stats=False):
         self.settings = settings
         self.with_stats = bool(with_stats)
         self.graph, self._graph_key = None, None
         self.last_launched = 0
+        self._last_counters = {}
+
+    @property
+    def last_counters(self):
+        """{name: host int}: the counters the last call kept
+        (_bounce_counters), read once after it; {} for a call without
+        with_stats."""
+        return self._last_counters
 
     def _config(self, N):
         return BounceConfig(self.settings, self.with_stats, int(N))
@@ -615,7 +670,7 @@ class BounceIntegrator:
                                  n_frames)
             steps = _bounce_steps(cfg, scene, st)
             ring = device_loop.StatusRing(device)
-        self.last_launched = 0
+        self.last_launched, self._last_counters = 0, {}
         launched = 0
         if int(n_frames) > 0 and cfg.N > 0:
             ring.reset()
@@ -629,6 +684,8 @@ class BounceIntegrator:
                 steps["end"]()
                 yield
         self.last_launched = launched
+        # read once, after the call (only a with_stats call keeps them)
+        self._last_counters = {k: int(st[k]) for k in _bounce_counters(cfg)}
 
         def out(t):
             return t.clone() if replay else t
